@@ -1,0 +1,323 @@
+"""Chip smoke test of the PyTorch/CUDA port: builds its kernels, holds each
+against its plain PyTorch version on the card, and serves the full-width
+Moving-MNIST DCGAN forecaster through them.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero, and no result line is printed):
+
+1. device: a CUDA card must be present; prints nvidia-smi's name and power limit;
+2. build: every ``csrc/*.cu`` with nvcc, one process each, all at once;
+3. kernel against plain: ``mlp_resnet_rollout`` against
+   ``mlp_resnet_rollout_reference`` on the card, TF32 off, at the serving
+   shapes (B 64, code 20, H 512, 1 block, 100 steps) and a ragged case
+   (B 13, 2 blocks);
+4. serving (the main path): ``Forecaster(batch_size=64, n_forecast=100)`` on
+   the full-width model built from seed 0 answers 64-, 17- and 1-window
+   requests; shapes, range, launch counts, the padded answers against the
+   full one (within tolerance with cuDNN's default algorithms, bitwise with
+   ``cudnn.deterministic``), and the forecast against the same model with
+   the plain rollout;
+5. timing: the Forecaster's latency, the kernel's, the plain loop's, the
+   eager ``torch.addmm`` loop's and the bound.
+
+The line before the last is a JSON object with one entry per kernel; the
+last is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from spatiotemporal_variable_separation_tpu_torch import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
+from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
+from spatiotemporal_variable_separation_tpu_torch.ops import _build
+from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
+    mlp_resnet_rollout,
+    mlp_resnet_rollout_reference,
+)
+from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
+
+B, N_FORECAST = 64, 100
+# Kernel against plain, per step and relative to max |t_k| at that step: T
+# grows ~1.2x a step at random init (to ~1e7-1e9 by step 99), so absolute
+# error is the wrong measure.  Both are f32 sums in another order; an f32
+# against f64 rollout on the CPU drifts 2.8e-6 at these shapes.
+ROLLOUT_REL_TOL = 1e-4
+# Two forecasts that should agree (through the kernel against the plain
+# rollout; a padded request against the full one): a ~1e-6 relative
+# difference -- the rollout's sum order, or the atomics of cuDNN's default
+# transposed convs -- meets |T| ~1e7 in the late steps, where the decoder's
+# sigmoid turns it into visible error on a few pixels near its midpoint.
+# Measured: the same 64-window request twice on an H100, mean 1.4e-8, max
+# 6.3e-3, 6.1e-7 of the pixels off by more than 1e-3; an f32 against an f64
+# rollout on the CPU, mean 1.2e-7, max 5.3e-3, 8.5e-6 off by more than 1e-3.
+FRAME_MEAN_TOL = 1e-5
+FRAME_OFF_FRAC_TOL = 1e-4  # share of pixels allowed off by more than 1e-3
+
+# Published peaks (NVIDIA data sheets; f32 outside the tensor cores, HBM).
+PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12)}
+PEAK_SXM = (66.9e12, 3.35e12)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def check_frames(out: np.ndarray, ref: np.ndarray, what: str) -> None:
+    diff = np.abs(out - ref)
+    off = float((diff > 1e-3).mean())
+    print(f"{what}: mean abs {diff.mean():.3e} (tolerance {FRAME_MEAN_TOL:g}), max abs "
+          f"{diff.max():.3e}, share off by >1e-3 {off:.3e} (tolerance {FRAME_OFF_FRAC_TOL:g})")
+    check(diff.mean() <= FRAME_MEAN_TOL and off <= FRAME_OFF_FRAC_TOL, what)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def step_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max_k max|out_k - ref_k| / max|ref_k| over steps k."""
+    diff = (out.double() - ref.double()).abs().amax(dim=(1, 2))
+    scale = ref.double().abs().amax(dim=(1, 2)).clamp_min(1e-30)
+    return float((diff / scale).max())
+
+
+def cuda_ms(fn, reps: int = 15, inner: int = 10) -> float:
+    """Median device time of one ``fn()`` call, by CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def addmm_loop(t0, params, n_steps, out, h1, h2, res):
+    """Eager ``torch.addmm`` rollout into preallocated buffers: the library
+    yardstick (not one call; no single PyTorch call computes this function)."""
+    out[0].copy_(t0)
+    for k in range(1, n_steps):
+        t = out[k - 1]
+        for i in range(0, len(params), 6):
+            w1, b1, w2, b2, w3, b3 = params[i:i + 6]
+            torch.addmm(b1, t, w1, out=h1).relu_()
+            torch.addmm(b2, h1, w2, out=h2).relu_()
+            torch.addmm(b3, h2, w3, out=res)
+            torch.add(t, res, out=out[k])
+            t = out[k]
+    return out
+
+
+def profile_layers(model, cond: torch.Tensor, n_forecast: int) -> None:
+    """One forecast with its layers called one by one: device time per layer
+    from CUDA events at the layer boundaries; then a torch.profiler trace of
+    another such forecast for the busiest kernels and the device's busy share
+    of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def forecast_by_layer():
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        start = time.perf_counter()
+        marks[0].record()
+        s_code = model.encode_s(cond)
+        marks[1].record()
+        t_code = model.encode_t(cond)
+        marks[2].record()
+        t_codes = model._integrate(t_code, n_forecast)
+        marks[3].record()
+        model._decode_all(s_code, None, t_codes)
+        marks[4].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        return wall_ms, [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
+
+    with torch.inference_mode():
+        forecast_by_layer()  # warm-up
+        wall_ms, layer_ms = forecast_by_layer()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced_wall_ms, _ = forecast_by_layer()
+    print(f"  one forecast, layer by layer: wall {wall_ms:.3f} ms")
+    for name, ms in zip(("encode_s", "encode_t", "rollout", "decode"), layer_ms):
+        print(f"    {name:9s} {ms:9.3f} ms ({ms / wall_ms:.1%} of the wall)")
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  traced forecast: wall {traced_wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / traced_wall_ms:.1%}), idle {1 - busy_ms / traced_wall_ms:.1%}")
+    for e in kernels[:8]:
+        print(f"    kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+
+
+def rollout_cost(batch, code, hidden, n_blocks, n_steps):
+    """(operations, bytes) of one rollout: matmul multiply-adds, bias adds,
+    relus and residual adds; each input read once, the output written once."""
+    per_row = 2 * (code * hidden + hidden * hidden + hidden * code) + 4 * hidden + 2 * code
+    ops = batch * per_row * n_blocks * (n_steps - 1)
+    weights = n_blocks * (2 * code * hidden + hidden * hidden + 2 * hidden + code)
+    nbytes = 4 * (batch * code + weights + n_steps * batch * code)
+    return ops, nbytes
+
+
+def main() -> None:
+    # -- 1. device -----------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(1)
+    dev = torch.device("cuda:0")
+    smi = nvidia_smi()
+    card = torch.cuda.get_device_name(0)
+    print(f"nvidia-smi: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {card}, "
+          f"count {torch.cuda.device_count()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+
+    # -- 2. build ------------------------------------------------------
+    t = time.perf_counter()
+    libs = _build.build()
+    print(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t:.1f} s")
+    for name, lib in libs.items():
+        log = (lib.parent / "build.log").read_text().strip()
+        print(f"  {name}: {lib}\n    " + log.replace("\n", "\n    "))
+
+    # -- 3. kernel against plain ---------------------------------------
+    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(0)
+    cond = rng.random((B, cfg.nt_cond) + cfg.frame_shape, dtype=np.float32)
+    cond_dev = torch.from_numpy(cond).to(dev)
+    with torch.inference_mode():
+        t0_main = model.encode_t(cond_dev).contiguous()
+    params_main = model.t_resnet.flat_params()
+    gen = torch.Generator().manual_seed(1)
+    ragged = MLPResnet(20, 2, 512, generator=gen).to(dev)
+    cases = {
+        "serving B64 code20 H512 1 block 100 steps": (t0_main, params_main, N_FORECAST),
+        "ragged B13 code20 H512 2 blocks 100 steps": (
+            torch.randn(13, 20, generator=gen).to(dev), ragged.flat_params(), N_FORECAST),
+    }
+    errors = {}
+    for label, (t0, params, n) in cases.items():
+        out = mlp_resnet_rollout(t0, params, n)
+        ref = mlp_resnet_rollout_reference(t0, params, n)
+        torch.cuda.synchronize()
+        rel = step_rel_err(out, ref)
+        abs_err = float((out - ref).abs().max())
+        errors[label] = (rel, abs_err)
+        print(f"kernel vs plain [{label}]: worst step-relative error {rel:.3e} "
+              f"(tolerance {ROLLOUT_REL_TOL:g}), max abs error {abs_err:.3e} at "
+              f"max |t| {float(ref.abs().max()):.3e}")
+        check(tuple(out.shape) == tuple(ref.shape) == (n,) + tuple(t0.shape), "rollout shape")
+        check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all()),
+              f"non-finite rollout values [{label}]")
+        check(rel <= ROLLOUT_REL_TOL, f"kernel disagrees with plain [{label}]")
+
+    # -- 4. serving: the main path -------------------------------------
+    kernel_rel, kernel_abs = errors["serving B64 code20 H512 1 block 100 steps"]
+    fc = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
+    mlp_resnet_rollout.launches = 0
+    answers = {b: fc.predict(cond[:b]) for b in (64, 17, 1)}
+    launches = mlp_resnet_rollout.launches
+    print(f"serving: requests of {list(answers)} windows, rollout kernel launches {launches}")
+    check(launches == len(answers), "one rollout kernel launch per request")
+    for b, a in answers.items():
+        check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"forecast shape for {b}")
+        check(bool(np.isfinite(a).all()), f"non-finite forecast for {b}")
+        check(bool(((a >= 0) & (a <= 1)).all()), f"sigmoid forecast outside [0, 1] for {b}")
+        # cuDNN's default transposed-conv algorithms accumulate with atomics:
+        # the same request twice differs in the last bits, so padded rows
+        # are held to the frame tolerance here and to bitwise identity below.
+        check_frames(a, answers[64][:b], f"padded {b}-window answer vs the 64-window rows")
+    torch.backends.cudnn.deterministic = True
+    exact = {b: fc.predict(cond[:b]) for b in (64, 17)}
+    torch.backends.cudnn.deterministic = False
+    identical = np.array_equal(exact[17], exact[64][:17])
+    print(f"with cudnn.deterministic: 17-window answer bitwise equal to the 64-window "
+          f"rows: {identical}")
+    check(identical, "padded rows differ with deterministic algorithms")
+    with torch.inference_mode():
+        t_codes_kernel = model.get_forecast(cond_dev, N_FORECAST)[1].transpose(0, 1)
+        t_codes_plain = mlp_resnet_rollout_reference(t0_main, params_main, N_FORECAST)
+        frames_plain = model._decode_all(model.encode_s(cond_dev), None, t_codes_plain)
+    rel = step_rel_err(t_codes_kernel, t_codes_plain)
+    print(f"serving T codes vs plain rollout: step-relative {rel:.3e} "
+          f"(tolerance {ROLLOUT_REL_TOL:g})")
+    check(rel <= ROLLOUT_REL_TOL, "serving T codes disagree with the plain rollout")
+    check_frames(answers[64], frames_plain.cpu().numpy(),
+                 "forecast vs the plain-rollout forecast")
+
+    # -- 5. timing -----------------------------------------------------
+    print(f"timing on {smi} (TF32 off)")
+    stats = fc.benchmark(n_iters=30, warmup=3)
+    print(f"  Forecaster B{B} x {N_FORECAST}: p50 {stats['p50_ms']:.3f} ms, p99 "
+          f"{stats['p99_ms']:.3f} ms, mean {stats['mean_ms']:.3f} ms, "
+          f"{stats['frames_per_sec']:.1f} frames/s")
+    profile_layers(model, cond_dev, N_FORECAST)
+    code, hidden = t0_main.shape[1], params_main[0].shape[1]
+    n_blocks = len(params_main) // 6
+    out, h1, h2, res = (torch.empty(N_FORECAST, B, code, device=dev),
+                        torch.empty(B, hidden, device=dev), torch.empty(B, hidden, device=dev),
+                        torch.empty(B, code, device=dev))
+    lib_out = addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res)
+    check(step_rel_err(lib_out, t_codes_plain) <= ROLLOUT_REL_TOL, "addmm loop disagrees")
+    ms = cuda_ms(lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST))
+    plain_ms = cuda_ms(lambda: mlp_resnet_rollout_reference(t0_main, params_main, N_FORECAST))
+    library_ms = cuda_ms(lambda: addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res))
+    ops, nbytes = rollout_cost(B, code, hidden, n_blocks, N_FORECAST)
+    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    print(f"  mlp_resnet_rollout kernel: {ms:.4f} ms (median of CUDA-event timings)")
+    print(f"  plain loop (mlp_resnet_rollout_reference): {plain_ms:.4f} ms")
+    print(f"  library_ms, eager torch.addmm loop into preallocated buffers (not one "
+          f"call; no single PyTorch call computes this function): {library_ms:.4f} ms")
+    print(f"  bound: {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
+          f"{t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
+          f"{t_bytes:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}; kernel at "
+          f"{bound_ms / ms:.1%} of it")
+
+    print(json.dumps({"kernels": [{
+        "name": "mlp_resnet_rollout",
+        "route": "cuda",
+        "source": "spatiotemporal_variable_separation_tpu_torch/csrc/mlp_resnet_rollout.cu",
+        "replaces": "spatiotemporal_variable_separation_tpu/ops/pallas/rollout.py:91",
+        "launches": launches,
+        "max_abs_err": kernel_abs,
+        "max_step_rel_err": kernel_rel,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_call": "eager torch.addmm loop (not one call)",
+    }]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the JAX package ``spatiotemporal_variable_separation_tpu``.
+
+A second package beside the JAX one, held against it by the tests.  It
+imports torch and numpy, never JAX nor the JAX package.  So far it serves
+the f32 forecast of the DCGAN separable model (``serve.Forecaster``), with
+the MLP-ResNet rollout as a hand-written CUDA kernel (``ops/rollout.py``,
+``csrc/mlp_resnet_rollout.cu``).
+"""
+
+from spatiotemporal_variable_separation_tpu_torch.core.config import ConfigError, ExperimentConfig
+
+__all__ = ["ConfigError", "ExperimentConfig"]

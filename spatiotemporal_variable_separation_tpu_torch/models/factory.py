@@ -1,0 +1,55 @@
+"""Model factory: a validated config -> the port's modules.
+
+Torch counterpart of the JAX package's ``models/factory.py:121-149``
+(reference ``main.py:116-140``) for what the port runs so far: the DCGAN-64
+encoder/decoder pair and the MLP-ResNet integrator, in f32.  Every weight is
+drawn from the caller's ``torch.Generator`` on the CPU, so one seed builds
+the same model on every machine, and the model is then moved to ``device``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.models.conv import (
+    DCGAN64Decoder,
+    DCGAN64Encoder,
+)
+from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
+from spatiotemporal_variable_separation_tpu_torch.models.separable import SeparableNetwork
+
+
+def build_separable_network(cfg: ExperimentConfig, device: torch.device,
+                            generator: torch.Generator) -> SeparableNetwork:
+    """Assemble the forecaster from a config; ``generator`` must be a CPU
+    generator (weights are drawn on the CPU, then moved)."""
+    cfg = cfg.validate()
+    if cfg.architecture != "dcgan" or cfg.decoder_arch != "dcgan":
+        raise NotImplementedError(
+            f"architecture {cfg.architecture!r}/{cfg.decoder_arch!r}: the port "
+            "builds only the dcgan encoder/decoder so far; the other families "
+            "come with ROADMAP.md Queue 1, slice 7 (remaining architectures)")
+    if cfg.no_s:
+        raise NotImplementedError(
+            "--no_s (ConstantS) comes with ROADMAP.md Queue 1, slice 7")
+    if cfg.precision != "f32":
+        raise NotImplementedError(
+            f"precision {cfg.precision!r}: the port serves f32 only; bf16 and "
+            "mixed come with the train step (ROADMAP.md Queue 1, slice 2)")
+    g = generator
+    in_channels = cfg.nt_cond * cfg.channels
+    enc = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g)
+    es = DCGAN64Encoder(in_channels, cfg.code_size_s, cfg.enc_hidden_size, **enc)
+    et = DCGAN64Encoder(in_channels, cfg.code_size_t, cfg.enc_hidden_size, **enc)
+    nz = (cfg.code_size_s + cfg.code_size_t if cfg.mixing == "concat"
+          else cfg.code_size_t)
+    decoder = DCGAN64Decoder(nz, cfg.channels, cfg.dec_hidden_size, skip=cfg.skipco,
+                             last_activation=cfg.last_activation,
+                             mixing=cfg.mixing, **enc)
+    t_resnet = MLPResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size,
+                         init_type=cfg.init_resnet, init_gain=cfg.gain_resnet,
+                         generator=g)
+    model = SeparableNetwork(Es=es, Et=et, t_resnet=t_resnet, decoder=decoder,
+                             skipco=cfg.skipco)
+    return model.to(device)
