@@ -6,22 +6,38 @@ Run from the root of a checkout, on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-Phases (any failure exits nonzero, and no result line is printed):
+The rollout has two kernels, chosen per call by ``rollout_plan`` from the
+shapes: the cluster kernel (weights resident in a thread-block cluster's
+shared memory) and the streaming kernel (weights streamed from L2, for
+weights no cluster can hold).  Phases (any failure exits nonzero, and no
+result line is printed):
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power limit;
 2. build: every ``csrc/*.cu`` with nvcc, one process each, all at once;
-3. kernel against plain: ``mlp_resnet_rollout`` against
-   ``mlp_resnet_rollout_reference`` on the card, TF32 off, at the serving
-   shapes (B 64, code 20, H 512, 1 block, 100 steps) and a ragged case
-   (B 13, 2 blocks);
-4. serving (the main path): ``Forecaster(batch_size=64, n_forecast=100)`` on
-   the full-width model built from seed 0 answers 64-, 17- and 1-window
-   requests; shapes, range, launch counts, the padded answers against the
-   full one (within tolerance with cuDNN's default algorithms, bitwise with
-   ``cudnn.deterministic``), and the forecast against the same model with
-   the plain rollout;
-5. timing: the Forecaster's latency, the kernel's, the plain loop's, the
-   eager ``torch.addmm`` loop's and the bound.
+   prints ptxas's report and whether it shows register spills;
+3. kernels against plain: ``mlp_resnet_rollout`` against
+   ``mlp_resnet_rollout_reference`` on the card, TF32 off, per step and
+   relative, each case through the kernel its plan names: the serving
+   shapes (B 64, code 20, H 512, 1 block, 100 steps; the cluster kernel at
+   C 8, and the streaming kernel forced), B 13 with 2 blocks (C 16), B 13 at
+   H 516 (C 8, a ragged hidden slice) and 4 blocks at H 512 (streaming);
+4. serving, two paths, each with the launch counts set to 0 just before it
+   and read just after:
+   a. the main path: ``Forecaster(batch_size=64, n_forecast=100)`` on the
+      full-width model built from seed 0 answers 64-, 17- and 1-window
+      requests through the cluster kernel (3 launches of it, none of the
+      streaming one); shapes, range, the padded answers against the full one
+      (within tolerance with cuDNN's default algorithms, bitwise with
+      ``cudnn.deterministic``), and the forecast against the same model with
+      the plain rollout;
+   b. the same model with a 4-block integrator (``n_blocks=4``) answers the
+      same requests through the streaming kernel (3 launches of it, none of
+      the cluster one); shapes, range, and its T codes against the plain
+      rollout;
+5. timing: the Forecaster's latency and per-layer profile; both kernels at
+   the serving shapes, in turns (stream, cluster, cluster, stream); the
+   cluster kernel at 4 rows a cluster; the plain loop, the eager
+   ``torch.addmm`` loop and the bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -42,12 +58,15 @@ from spatiotemporal_variable_separation_tpu_torch.models.factory import build_se
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
 from spatiotemporal_variable_separation_tpu_torch.ops import _build
 from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
+    cluster_library,
     mlp_resnet_rollout,
     mlp_resnet_rollout_reference,
+    rollout_plan,
 )
 from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
 
 B, N_FORECAST = 64, 100
+REQUESTS = (64, 17, 1)  # windows per request: full, padded, single
 # Kernel against plain, per step and relative to max |t_k| at that step: T
 # grows ~1.2x a step at random init (to ~1e7-1e9 by step 99), so absolute
 # error is the wrong measure.  Both are f32 sums in another order; an f32
@@ -80,6 +99,11 @@ def check_frames(out: np.ndarray, ref: np.ndarray, what: str) -> None:
     print(f"{what}: mean abs {diff.mean():.3e} (tolerance {FRAME_MEAN_TOL:g}), max abs "
           f"{diff.max():.3e}, share off by >1e-3 {off:.3e} (tolerance {FRAME_OFF_FRAC_TOL:g})")
     check(diff.mean() <= FRAME_MEAN_TOL and off <= FRAME_OFF_FRAC_TOL, what)
+
+
+def reset_launch_counts() -> None:
+    mlp_resnet_rollout.launches = 0
+    mlp_resnet_rollout.variant_launches = dict.fromkeys(mlp_resnet_rollout.variant_launches, 0)
 
 
 def nvidia_smi() -> str:
@@ -204,6 +228,10 @@ def main() -> None:
     for name, lib in libs.items():
         log = (lib.parent / "build.log").read_text().strip()
         print(f"  {name}: {lib}\n    " + log.replace("\n", "\n    "))
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        print(f"  {name}: ptxas reports " + ("no register spills" if not spills else
+                                             "register spills: " + "; ".join(spills)))
 
     # -- 3. kernel against plain ---------------------------------------
     cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
@@ -216,35 +244,67 @@ def main() -> None:
     params_main = model.t_resnet.flat_params()
     gen = torch.Generator().manual_seed(1)
     ragged = MLPResnet(20, 2, 512, generator=gen).to(dev)
-    cases = {
-        "serving B64 code20 H512 1 block 100 steps": (t0_main, params_main, N_FORECAST),
+    cases = {  # label: (t0, params, n_steps, the plan's (variant, cluster))
+        "serving B64 code20 H512 1 block 100 steps": (
+            t0_main, params_main, N_FORECAST, ("cluster", 8)),
         "ragged B13 code20 H512 2 blocks 100 steps": (
-            torch.randn(13, 20, generator=gen).to(dev), ragged.flat_params(), N_FORECAST),
+            torch.randn(13, 20, generator=gen).to(dev), ragged.flat_params(), N_FORECAST,
+            ("cluster", 16)),
+        "ragged slice B13 code20 H516 1 block 100 steps": (
+            torch.randn(13, 20, generator=gen).to(dev),
+            MLPResnet(20, 1, 516, generator=gen).to(dev).flat_params(), N_FORECAST,
+            ("cluster", 8)),
+        "4 blocks B64 code20 H512 100 steps": (
+            torch.randn(B, 20, generator=gen).to(dev),
+            MLPResnet(20, 4, 512, generator=gen).to(dev).flat_params(), N_FORECAST,
+            ("stream", 1)),
     }
+    cluster_lib = cluster_library()
     errors = {}
-    for label, (t0, params, n) in cases.items():
-        out = mlp_resnet_rollout(t0, params, n)
+    for label, (t0, params, n, expected) in cases.items():
+        batch, code = t0.shape
+        hidden, n_blocks = params[0].shape[1], len(params) // 6
+        plans = [rollout_plan(batch, code, hidden, n_blocks)]
+        check((plans[0].variant, plans[0].cluster) == expected,
+              f"plan {plans[0]} is not {expected} [{label}]")
+        if label.startswith("serving"):
+            plans.append(rollout_plan(batch, code, hidden, n_blocks, variant="stream"))
         ref = mlp_resnet_rollout_reference(t0, params, n)
-        torch.cuda.synchronize()
-        rel = step_rel_err(out, ref)
-        abs_err = float((out - ref).abs().max())
-        errors[label] = (rel, abs_err)
-        print(f"kernel vs plain [{label}]: worst step-relative error {rel:.3e} "
-              f"(tolerance {ROLLOUT_REL_TOL:g}), max abs error {abs_err:.3e} at "
-              f"max |t| {float(ref.abs().max()):.3e}")
-        check(tuple(out.shape) == tuple(ref.shape) == (n,) + tuple(t0.shape), "rollout shape")
-        check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all()),
-              f"non-finite rollout values [{label}]")
-        check(rel <= ROLLOUT_REL_TOL, f"kernel disagrees with plain [{label}]")
+        for plan in plans:
+            if plan.variant == "cluster":
+                c_smem = cluster_lib.mlp_resnet_rollout_cluster_smem_bytes(
+                    code, hidden, n_blocks, plan.cluster, plan.rows)
+                active = cluster_lib.mlp_resnet_rollout_cluster_max_active(
+                    batch, code, hidden, n_blocks, plan.cluster, plan.rows)
+                print(f"plan [{label}]: {plan}; the kernel's own layout {c_smem} bytes; "
+                      f"at most {active} such clusters at once")
+                check(c_smem == plan.smem_bytes, "plan and kernel disagree on shared memory")
+                check(active >= 1, f"no cluster of the plan fits [{label}]")
+            else:
+                print(f"plan [{label}]: {plan}")
+            out = mlp_resnet_rollout(t0, params, n, plan=plan)
+            torch.cuda.synchronize()
+            rel = step_rel_err(out, ref)
+            abs_err = float((out - ref).abs().max())
+            errors[label, plan.variant] = (rel, abs_err)
+            print(f"{plan.variant} kernel vs plain [{label}]: worst step-relative error "
+                  f"{rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs error {abs_err:.3e} "
+                  f"at max |t| {float(ref.abs().max()):.3e}")
+            check(tuple(out.shape) == tuple(ref.shape) == (n,) + tuple(t0.shape),
+                  "rollout shape")
+            check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all()),
+                  f"non-finite rollout values [{label}]")
+            check(rel <= ROLLOUT_REL_TOL, f"{plan.variant} kernel disagrees with plain [{label}]")
+    check({v for _, v in errors} == {"cluster", "stream"}, "both variants checked")
 
-    # -- 4. serving: the main path -------------------------------------
-    kernel_rel, kernel_abs = errors["serving B64 code20 H512 1 block 100 steps"]
+    # -- 4a. serving: the main path ------------------------------------
     fc = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
-    mlp_resnet_rollout.launches = 0
-    answers = {b: fc.predict(cond[:b]) for b in (64, 17, 1)}
-    launches = mlp_resnet_rollout.launches
+    reset_launch_counts()
+    answers = {b: fc.predict(cond[:b]) for b in REQUESTS}
+    launches = dict(mlp_resnet_rollout.variant_launches)
     print(f"serving: requests of {list(answers)} windows, rollout kernel launches {launches}")
-    check(launches == len(answers), "one rollout kernel launch per request")
+    check(launches == {"cluster": len(answers), "stream": 0},
+          "one cluster-kernel launch per request")
     for b, a in answers.items():
         check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"forecast shape for {b}")
         check(bool(np.isfinite(a).all()), f"non-finite forecast for {b}")
@@ -252,13 +312,14 @@ def main() -> None:
         # cuDNN's default transposed-conv algorithms accumulate with atomics:
         # the same request twice differs in the last bits, so padded rows
         # are held to the frame tolerance here and to bitwise identity below.
-        check_frames(a, answers[64][:b], f"padded {b}-window answer vs the 64-window rows")
+        check_frames(a, answers[B][:b], f"padded {b}-window answer vs the {B}-window rows")
     torch.backends.cudnn.deterministic = True
-    exact = {b: fc.predict(cond[:b]) for b in (64, 17)}
+    exact = {b: fc.predict(cond[:b]) for b in REQUESTS[:2]}
     torch.backends.cudnn.deterministic = False
-    identical = np.array_equal(exact[17], exact[64][:17])
-    print(f"with cudnn.deterministic: 17-window answer bitwise equal to the 64-window "
-          f"rows: {identical}")
+    small = REQUESTS[1]
+    identical = np.array_equal(exact[small], exact[B][:small])
+    print(f"with cudnn.deterministic: {small}-window answer bitwise equal to the "
+          f"{B}-window rows: {identical}")
     check(identical, "padded rows differ with deterministic algorithms")
     with torch.inference_mode():
         t_codes_kernel = model.get_forecast(cond_dev, N_FORECAST)[1].transpose(0, 1)
@@ -268,8 +329,32 @@ def main() -> None:
     print(f"serving T codes vs plain rollout: step-relative {rel:.3e} "
           f"(tolerance {ROLLOUT_REL_TOL:g})")
     check(rel <= ROLLOUT_REL_TOL, "serving T codes disagree with the plain rollout")
-    check_frames(answers[64], frames_plain.cpu().numpy(),
+    check_frames(answers[B], frames_plain.cpu().numpy(),
                  "forecast vs the plain-rollout forecast")
+
+    # -- 4b. serving with a 4-block integrator: the streaming kernel -----
+    cfg4 = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32", n_blocks=4)
+    model4 = build_separable_network(cfg4, dev, torch.Generator().manual_seed(0)).eval()
+    fc4 = Forecaster(model4, cfg4, batch_size=B, n_forecast=N_FORECAST, device=dev)
+    reset_launch_counts()
+    answers4 = {b: fc4.predict(cond[:b]) for b in REQUESTS}
+    launches4 = dict(mlp_resnet_rollout.variant_launches)
+    print(f"serving, 4-block integrator: requests of {list(answers4)} windows, rollout "
+          f"kernel launches {launches4}")
+    check(launches4 == {"cluster": 0, "stream": len(answers4)},
+          "one streaming-kernel launch per 4-block request")
+    for b, a in answers4.items():
+        check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"4-block forecast shape for {b}")
+        check(bool(np.isfinite(a).all()), f"non-finite 4-block forecast for {b}")
+        check(bool(((a >= 0) & (a <= 1)).all()), f"4-block forecast outside [0, 1] for {b}")
+    with torch.inference_mode():
+        t_codes4 = model4.get_forecast(cond_dev, N_FORECAST)[1].transpose(0, 1)
+        t_codes4_plain = mlp_resnet_rollout_reference(
+            model4.encode_t(cond_dev).contiguous(), model4.t_resnet.flat_params(), N_FORECAST)
+    rel = step_rel_err(t_codes4, t_codes4_plain)
+    print(f"4-block serving T codes vs plain rollout: step-relative {rel:.3e} "
+          f"(tolerance {ROLLOUT_REL_TOL:g})")
+    check(rel <= ROLLOUT_REL_TOL, "4-block serving T codes disagree with the plain rollout")
 
     # -- 5. timing -----------------------------------------------------
     print(f"timing on {smi} (TF32 off)")
@@ -285,36 +370,60 @@ def main() -> None:
                         torch.empty(B, code, device=dev))
     lib_out = addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res)
     check(step_rel_err(lib_out, t_codes_plain) <= ROLLOUT_REL_TOL, "addmm loop disagrees")
-    ms = cuda_ms(lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST))
+    plans = {"cluster": rollout_plan(B, code, hidden, n_blocks),
+             "stream": rollout_plan(B, code, hidden, n_blocks, variant="stream")}
+    runs = {v: [] for v in plans}
+    for v in ("stream", "cluster", "cluster", "stream"):
+        runs[v].append(cuda_ms(
+            lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST, plan=plans[v])))
+    ms = {v: float(np.mean(t)) for v, t in runs.items()}
+    rows4 = rollout_plan(B, code, hidden, n_blocks, rows=4)
+    rows4_ms = cuda_ms(lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST, plan=rows4))
+    rows4_active = cluster_lib.mlp_resnet_rollout_cluster_max_active(
+        B, code, hidden, n_blocks, rows4.cluster, rows4.rows)
     plain_ms = cuda_ms(lambda: mlp_resnet_rollout_reference(t0_main, params_main, N_FORECAST))
-    library_ms = cuda_ms(lambda: addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res))
+    addmm_ms = cuda_ms(lambda: addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res))
     ops, nbytes = rollout_cost(B, code, hidden, n_blocks, N_FORECAST)
     t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
     bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    print(f"  mlp_resnet_rollout kernel: {ms:.4f} ms (median of CUDA-event timings)")
+    for v, plan in plans.items():
+        print(f"  {v} kernel {plan}: {ms[v]:.4f} ms (mean of two medians of CUDA-event "
+              f"timings, {runs[v][0]:.4f} and {runs[v][1]:.4f}), "
+              f"{ms[v] / (N_FORECAST - 1) * 1e3:.3f} us a step; {bound_ms / ms[v]:.1%} of "
+              f"the bound")
+    print(f"  the cluster kernel is {ms['stream'] / ms['cluster']:.2f}x as fast as the "
+          f"streaming kernel")
+    print(f"  cluster kernel at 4 rows a cluster {rows4}: {rows4_ms:.4f} ms "
+          f"({-(-B // rows4.rows)} clusters, at most {rows4_active} at once)")
     print(f"  plain loop (mlp_resnet_rollout_reference): {plain_ms:.4f} ms")
-    print(f"  library_ms, eager torch.addmm loop into preallocated buffers (not one "
-          f"call; no single PyTorch call computes this function): {library_ms:.4f} ms")
+    print(f"  eager torch.addmm loop into preallocated buffers (not one call; no single "
+          f"PyTorch call computes this function, so library_ms is null): {addmm_ms:.4f} ms")
     print(f"  bound: {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
           f"{t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
-          f"{t_bytes:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}; kernel at "
-          f"{bound_ms / ms:.1%} of it")
+          f"{t_bytes:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
 
+    sources = {"cluster": "mlp_resnet_rollout_cluster.cu", "stream": "mlp_resnet_rollout.cu"}
+    paths = {"cluster": ("serving, 1-block integrator", launches["cluster"]),
+             "stream": ("serving, 4-block integrator", launches4["stream"])}
+    serving = "serving B64 code20 H512 1 block 100 steps"
     print(json.dumps({"kernels": [{
-        "name": "mlp_resnet_rollout",
+        "name": f"mlp_resnet_rollout[{v}]",
         "route": "cuda",
-        "source": "spatiotemporal_variable_separation_tpu_torch/csrc/mlp_resnet_rollout.cu",
+        "source": f"spatiotemporal_variable_separation_tpu_torch/csrc/{sources[v]}",
         "replaces": "spatiotemporal_variable_separation_tpu/ops/pallas/rollout.py:91",
-        "launches": launches,
-        "max_abs_err": kernel_abs,
-        "max_step_rel_err": kernel_rel,
-        "ms": ms,
+        "launches": paths[v][1],
+        "launches_path": paths[v][0],
+        "max_abs_err": errors[serving, v][1],
+        "max_step_rel_err": errors[serving, v][0],
+        "ms": ms[v],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": library_ms,
-        "library_call": "eager torch.addmm loop (not one call)",
-    }]}))
+        "library_ms": None,
+        "addmm_loop_ms": addmm_ms,
+        "shapes": "B 64, code 20, H 512, 1 block, 100 steps",
+        "plan": plans[v]._asdict(),
+    } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))
 

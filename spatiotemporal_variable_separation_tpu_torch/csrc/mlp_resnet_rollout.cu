@@ -13,12 +13,14 @@
 // on about 1.6 MB of data (1.13 MB of weights, 0.5 MB of output), so the card's
 // bound is its f32 rate outside the tensor cores: about 53 us at 67 TFLOP/s.  The
 // steps are sequential, and every step needs all the weights, which are more than
-// one SM's 227 KB of shared memory (W2 alone is 1 MiB), so the TPU design -- every
-// weight resident in VMEM for the whole rollout -- does not carry over.
+// one SM's 227 KB of shared memory (W2 alone is 1 MiB).
 //
-// What this design does about it (the simple, correct first version).  One thread
-// block owns a tile of kRows batch rows and loops over every step and every block
-// of the MLP itself.  The tile's activations (t, h1, h2: kRows*(code + 2H) floats,
+// This is the streaming variant.  mlp_resnet_rollout_cluster.cu holds the weights
+// resident in a thread-block cluster's shared memory, as the TPU kernel holds them
+// in VMEM, and serves every shape whose weights a cluster of up to 16 CTAs can
+// hold; ops/rollout.py:rollout_plan sends the rest here (e.g. 4 blocks at hidden
+// 512).  One thread block owns a tile of kRows batch rows and loops over every
+// step and every block of the MLP itself.  The tile's activations (t, h1, h2: kRows*(code + 2H) floats,
 // 33 KB at the serving shapes) live in shared memory, stored row-index-fastest so
 // a thread reads one column's kRows values as two broadcast float4 loads.  The
 // weights stream from device memory every step and stay resident in the 50 MB L2.
@@ -27,8 +29,7 @@
 // per output column and reduces over the hidden dimension with shuffles.  A
 // ragged last tile is masked, not padded by the caller.  At batch 64 only 8 of the
 // 132 SMs work, each limited by pulling 1.13 MB per step out of L2, so the kernel
-// sits far above the bound; splitting the weights across a thread-block cluster,
-// TMA and wgmma are later work.
+// sits far above the bound.
 
 #include <cuda_runtime.h>
 
@@ -184,8 +185,6 @@ extern "C" int mlp_resnet_rollout_f32(const float* t0, const void* const* params
       t0, bp, n_blocks, out, batch, code, hidden, n_steps);
   return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" int mlp_resnet_rollout_max_blocks() { return kMaxBlocks; }
 
 extern "C" const char* mlp_resnet_rollout_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -4,9 +4,10 @@ Torch counterpart of the JAX package's ``models/separable.py`` (reference
 ``var_sep/networks/model.py:20-89``) for evaluation and serving:
 
 * S (and its skip maps) and T are encoded once from the conditioning window;
-* T is rolled forward by ``ops.rollout.mlp_resnet_rollout`` -- the
-  hand-written kernel on the card, the plain loop on the CPU -- where the JAX
-  package scans its integrator module;
+* T is rolled forward by ``ops.rollout.mlp_resnet_rollout`` -- a
+  hand-written kernel on the card (the one ``rollout_plan`` picks from the
+  shapes), the plain loop on the CPU -- where the JAX package scans its
+  integrator module;
 * every (S, T_t) pair is decoded in one batched fold with BatchNorm frozen,
   auto-chunked along the horizon by ``eval_decode_tile_elems``.
 

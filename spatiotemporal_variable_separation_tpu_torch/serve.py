@@ -14,8 +14,8 @@ one model in eval mode on one device and answers requests of up to
   calls on the same input may differ in the last bits (measured on an H100
   80GB HBM3 at 700 W, B 64 x 100 frames: max 6.3e-3, mean 1.4e-8, with
   deterministic algorithms 123 ms a call instead of 88 ms);
-* the T rollout runs in the hand-written CUDA kernel
-  (``ops/rollout.py``), the encoders and decoder in PyTorch;
+* the T rollout runs in a hand-written CUDA kernel (``ops/rollout.py``
+  picks it from the shapes), the encoders and decoder in PyTorch;
 * the device is the card unless the caller asks for the CPU: with no card
   present, constructing a Forecaster without ``device="cpu"`` raises.
 

@@ -115,7 +115,8 @@ FORBIDDEN = re.compile(
 
 
 def test_port_sources_name_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted(ROOT.glob("tools/torch_*.py")))
     assert len(files) > 10
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in FORBIDDEN.finditer(f.read_text())]
