@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: builds its kernels, holds each
-against its plain PyTorch version on the card, and serves the full-width
-Moving-MNIST DCGAN forecaster through them.
+against its plain PyTorch version on the card, serves the full-width
+Moving-MNIST DCGAN forecaster through them, and trains it at the flagship
+config of ``bench.py``.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -37,7 +38,25 @@ result line is printed):
 5. timing: the Forecaster's latency and per-layer profile; both kernels at
    the serving shapes, in turns (stream, cluster, cluster, stream); the
    cluster kernel at 4 rows a cluster; the plain loop, the eager
-   ``torch.addmm`` loop and the bound.
+   ``torch.addmm`` loop and the bound;
+6. the train step, card against CPU: full width, f32 with TF32 off, B 8,
+   5+10 frames, offset 5, ``fused_loss``; the same weights, batch and
+   ``t_random`` through ``make_train_step`` on the card and on the CPU.
+   The loss terms, the gradients, the BatchNorm running statistics and the
+   params after Adam must agree within the tolerances below, and the train
+   step launches the rollout kernel 0 times (training differentiates
+   through the integrator module; the kernel is forward-only);
+7. the flagship train step (``bench.py:72-80``: B 128, bf16 compute, f32
+   params, f32 BatchNorm IO, ``fused_loss``) on a fixed synthetic batch of
+   moving squares made with numpy from a seed: 40 steps with a finite loss
+   that falls, params and BatchNorm statistics that move, and no rollout
+   launch; then the trained weights, served under ``mixed`` (bf16 serving
+   is refused), answer one request through the cluster kernel (1 launch).
+   Timing: 5 warm-up and 50 timed steps, bf16 and f32 with TF32 off,
+   ms/step and samples/s; one step split by CUDA events into forward,
+   backward and optimizer; a torch.profiler trace (top device kernels, the
+   device's idle share); the step's FLOPs counted by
+   ``torch.utils.flop_counter`` and their share of the card's bf16 peak.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -45,6 +64,7 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -64,6 +84,12 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     rollout_plan,
 )
 from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
+from spatiotemporal_variable_separation_tpu_torch.train import (
+    TrainState,
+    create_train_state,
+    make_optimizer,
+    make_train_step,
+)
 
 B, N_FORECAST = 64, 100
 REQUESTS = (64, 17, 1)  # windows per request: full, padded, single
@@ -86,6 +112,40 @@ FRAME_OFF_FRAC_TOL = 1e-4  # share of pixels allowed off by more than 1e-3
 # Published peaks (NVIDIA data sheets; f32 outside the tensor cores, HBM).
 PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12)}
 PEAK_SXM = (66.9e12, 3.35e12)
+# Dense bf16 tensor-core peaks, same data sheets (without sparsity).
+BF16_PEAKS = {"PCIe": 756e12, "NVL": 835e12}
+BF16_PEAK_SXM = 989e12
+
+# -- phase 6: the train step on the card against the CPU ------------------
+TRAIN_CHECK_B, TRAIN_CHECK_T_RANDOM = 8, 7
+# Loss terms: f32 on both sides, sums in other orders (cuDNN against oneDNN);
+# an f32 against f64 step on the CPU at these shapes differs by 1e-7.
+TRAIN_LOSS_RTOL = 1e-4
+# Gradients, max |card - CPU| over a tensor relative to the max |g| of its
+# layer (weight and bias together: a conv bias that feeds a train-mode
+# BatchNorm has zero gradient in exact arithmetic, so both sides return
+# rounding noise there).  Not tighter: the two sides' activations differ by
+# ~1e-6, and a LeakyReLU input that close to zero takes the other branch on
+# one side, which moves the gradients of every layer before it by up to a
+# few percent (tests/test_torch_losses.py measures it against f64).  An
+# f32 against f64 step on the CPU at these shapes differs by 3.2e-2, in
+# decoder.first_upconv.conv.weight.
+TRAIN_GRAD_TOL = 0.1
+# BatchNorm running statistics, relative to each layer's max |stat|: forward
+# values, f32 sums of up to 65,536 terms in other orders; f32 against f64 on
+# the CPU at these shapes: 4.9e-7.
+TRAIN_STATS_TOL = 1e-4
+
+# -- phase 7: the flagship train step --------------------------------------
+FLAGSHIP = dict(data="mnist", architecture="dcgan", code_size_s=128, code_size_t=20,
+                enc_hidden_size=64, dec_hidden_size=64, res_hidden_size=512, n_blocks=1,
+                nt_cond=5, nt_pred=10, offset=5, batch_size=128, precision="bf16", seed=0,
+                fused_loss=True)  # bench.py:72-80
+TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 5, 50
+# The loss after TRAIN_STEPS steps on one fixed batch, against the first
+# step's: 0.0306 measured on an H100 (129.7 -> 3.97); 0.1 leaves 3x room
+# for cuDNN's run-to-run atomics and the bf16 roundings.
+LOSS_FALL = 0.1
 
 
 def check(ok: bool, what: str) -> None:
@@ -169,7 +229,7 @@ def profile_layers(model, cond: torch.Tensor, n_forecast: int) -> None:
         marks[1].record()
         t_code = model.encode_t(cond)
         marks[2].record()
-        t_codes = model._integrate(t_code, n_forecast)
+        t_codes, _ = model._integrate(t_code, n_forecast)
         marks[3].record()
         model._decode_all(s_code, None, t_codes)
         marks[4].record()
@@ -202,6 +262,249 @@ def rollout_cost(batch, code, hidden, n_blocks, n_steps):
     weights = n_blocks * (2 * code * hidden + hidden * hidden + 2 * hidden + code)
     nbytes = 4 * (batch * code + weights + n_steps * batch * code)
     return ops, nbytes
+
+
+def moving_squares(batch: int, n_frames: int, seed: int) -> np.ndarray:
+    """(batch, n_frames, 64, 64, 1) f32 frames of two 14-pixel squares that
+    move at constant speed and bounce off the edges: a fixed, structured
+    batch in Moving MNIST's shapes (the digit pipeline is a later slice)."""
+    side, size = 14, 64
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, size - side, (batch, 2, 2))
+    vel = rng.uniform(-3, 3, (batch, 2, 2))
+    grid = np.arange(size)
+    frames = np.zeros((batch, n_frames, size, size, 1), np.float32)
+    for t in range(n_frames):
+        for k in range(2):
+            rows = (grid >= pos[:, k, :1]) & (grid < pos[:, k, :1] + side)
+            cols = (grid >= pos[:, k, 1:]) & (grid < pos[:, k, 1:] + side)
+            frames[:, t, :, :, 0] = np.maximum(frames[:, t, :, :, 0],
+                                               rows[:, :, None] & cols[:, None, :])
+        pos += vel
+        out = (pos < 0) | (pos > size - side)
+        vel[out] = -vel[out]
+        pos = np.clip(pos, 0, size - side)
+    return frames
+
+
+def layer_rel_err(ours: dict, ref: dict) -> tuple:
+    """(name, max over tensors of max |ours - ref| / max |ref| of its layer)."""
+    scale = {}
+    for n, r in ref.items():
+        layer = n.rpartition(".")[0]
+        scale[layer] = max(scale.get(layer, 0.0), float(r.abs().max()))
+    errs = {n: float((ours[n] - r).abs().max()) / max(scale[n.rpartition(".")[0]], 1e-30)
+            for n, r in ref.items()}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def bn_stats(model) -> dict:
+    return {f"{n}.{k}": getattr(m, k).detach().double().cpu()
+            for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)
+            for k in ("running_mean", "running_var")}
+
+
+def train_step_card_vs_cpu(dev) -> None:
+    """Phase 6: one f32 train step on the card and on the CPU from the same
+    weights, batch and t_random."""
+    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32",
+                           fused_loss=True, batch_size=TRAIN_CHECK_B)
+    seq = moving_squares(TRAIN_CHECK_B, cfg.nt_cond + cfg.nt_pred, seed=6)
+    cpu_model = build_separable_network(cfg, torch.device("cpu"), torch.Generator().manual_seed(0))
+    dev_model = copy.deepcopy(cpu_model).to(dev)
+    results = {}
+    for name, model, device in (("cpu", cpu_model, torch.device("cpu")), ("card", dev_model, dev)):
+        opt = make_optimizer(model.parameters(), cfg, steps_per_epoch=100)
+        state = TrainState(model=model, optimizer=opt, generator=torch.Generator())
+        x = torch.from_numpy(seq).to(device)
+        reset_launch_counts()
+        metrics = make_train_step(model, cfg, opt)(state, x[:, :cfg.nt_cond], x[:, cfg.nt_cond:],
+                                                   t_random=TRAIN_CHECK_T_RANDOM)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(mlp_resnet_rollout.variant_launches)  # the card's: read last
+        results[name] = ({k: float(v) for k, v in metrics.items()},
+                         {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+                         bn_stats(model),
+                         {n: p.detach().double().cpu() for n, p in model.named_parameters()})
+    (m_cpu, g_cpu, s_cpu, p_cpu), (m_dev, g_dev, s_dev, p_dev) = results["cpu"], results["card"]
+    print(f"train step, card against CPU (f32, TF32 off, B {TRAIN_CHECK_B}, full width, "
+          f"t_random {TRAIN_CHECK_T_RANDOM}): rollout kernel launches in the step {launches}")
+    check(launches == {"cluster": 0, "stream": 0}, "the train step launched the rollout kernel")
+    for k in m_cpu:
+        rel = abs(m_dev[k] - m_cpu[k]) / abs(m_cpu[k])
+        print(f"  {k}: card {m_dev[k]:.6f}, CPU {m_cpu[k]:.6f}, relative {rel:.2e} "
+              f"(tolerance {TRAIN_LOSS_RTOL:g})")
+        check(np.isfinite(m_dev[k]) and rel <= TRAIN_LOSS_RTOL, f"train loss term {k}")
+    worst, err = layer_rel_err(g_dev, g_cpu)
+    print(f"  gradients: worst {err:.2e} of the layer's max |g| at {worst} "
+          f"(tolerance {TRAIN_GRAD_TOL:g})")
+    check(err <= TRAIN_GRAD_TOL, "train gradients, card against CPU")
+    worst, err = layer_rel_err(s_dev, s_cpu)
+    print(f"  BatchNorm running statistics: worst {err:.2e} of the layer's max at {worst} "
+          f"(tolerance {TRAIN_STATS_TOL:g})")
+    check(err <= TRAIN_STATS_TOL, "BatchNorm statistics, card against CPU")
+    # Adam's first step moves a param by lr g / (|g| + eps), at most lr, and
+    # turns the sign of a ~0 gradient's noise into +-lr: the two sides part
+    # by at most 2 lr, plus the rounding of params of up to ~1 (1e-6).
+    tol = 2 * cfg.lr + 1e-6
+    moved = max(float((p_dev[n] - p_cpu[n]).abs().max()) for n in p_cpu)
+    print(f"  params after Adam: max |card - CPU| {moved:.2e} (tolerance {tol:g})")
+    check(moved <= tol, "params after Adam, card against CPU")
+
+
+def time_train_steps(state, step, cond, target) -> float:
+    """Mean ms of one train step over TIMED_STEPS after WARMUP_STEPS, fenced
+    by torch.cuda.synchronize()."""
+    for _ in range(WARMUP_STEPS):
+        step(state, cond, target)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        step(state, cond, target)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / TIMED_STEPS * 1e3
+
+
+def split_train_step(state, cfg, cond, target, reps: int = 10) -> dict:
+    """Median device ms of the forward (compute_losses), backward and
+    optimizer parts of a train step, by CUDA events between them."""
+    model, opt = state.model, state.optimizer
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = model.compute_losses(cond, target, cfg.nt_cond + 2, cfg.offset, cfg.lamb_ae,
+                                       cfg.lamb_s, cfg.effective_lamb_t, cfg.lamb_pred,
+                                       cfg.average_tloss, lamb_s_norm=cfg.lamb_s_norm)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def profile_train_steps(state, step, cond, target, n: int = 3) -> None:
+    """A torch.profiler trace of ``n`` train steps: the busiest device
+    kernels and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(n):
+            step(state, cond, target)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    # The optimizer's user annotation shows on the device timeline too; it
+    # spans Adam's kernels and is not one.
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("Optimizer.")),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"  traced {n} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}; "
+          f"{launches / n:.0f} device kernels a step")
+    for e in kernels[:12]:
+        print(f"    kernel {e.self_device_time_total / 1e3 / n:9.3f} ms a step "
+              f"({e.self_device_time_total / 1e3 / busy_ms:.1%}) x{e.count // n:<5d} {e.key[:90]}")
+
+
+def step_flops(state, cfg, cond, target) -> float:
+    """FLOPs of one train step's forward and backward, counted op by op
+    (convolutions and matrix products) by torch.utils.flop_counter."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = copy.deepcopy(state.model)
+    with FlopCounterMode(display=False) as counter:
+        loss, _ = model.compute_losses(cond, target, cfg.nt_cond + 2, cfg.offset, cfg.lamb_ae,
+                                       cfg.lamb_s, cfg.effective_lamb_t, cfg.lamb_pred,
+                                       cfg.average_tloss)
+        loss.backward()
+    return float(counter.get_total_flops())
+
+
+def flagship_train(dev, smi: str, card: str) -> None:
+    """Phase 7: the flagship config trains on a fixed batch, is timed, and
+    its weights serve one request through the cluster kernel."""
+    cfg = ExperimentConfig(**FLAGSHIP)
+    state = create_train_state(cfg, steps_per_epoch=100, device=dev)
+    step = make_train_step(state.model, cfg, state.optimizer)
+    seq = torch.from_numpy(moving_squares(cfg.batch_size, cfg.nt_cond + cfg.nt_pred, seed=7)).to(dev)
+    cond, target = seq[:, :cfg.nt_cond], seq[:, cfg.nt_cond:]
+    params0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    stats0 = bn_stats(state.model)
+    reset_launch_counts()
+    losses = [float(step(state, cond, target)["loss"]) for _ in range(TRAIN_STEPS)]
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    print(f"flagship train step (bench.py:72-80: B {cfg.batch_size}, bf16 compute, f32 params, "
+          f"f32 BatchNorm IO, fused_loss), {TRAIN_STEPS} steps on one fixed batch: loss "
+          + ", ".join(f"{v:.4f}" for v in losses[:5]) + " ... "
+          + ", ".join(f"{v:.4f}" for v in losses[-3:]))
+    print(f"  rollout kernel launches during training: {launches}")
+    check(launches == {"cluster": 0, "stream": 0}, "training launched the rollout kernel")
+    check(bool(np.isfinite(losses).all()), "non-finite flagship loss")
+    print(f"  last/first loss {losses[-1] / losses[0]:.4f} (must be below {LOSS_FALL:g})")
+    check(losses[-1] < LOSS_FALL * losses[0], "the flagship loss did not fall")
+    p_moved = min(float((p.detach() - params0[n]).abs().max())
+                  for n, p in state.model.named_parameters())
+    s_moved = min(float((v - stats0[n]).abs().max()) for n, v in bn_stats(state.model).items())
+    print(f"  every param tensor moved (least max |change| {p_moved:.3e}); every BatchNorm "
+          f"statistic moved (least max |change| {s_moved:.3e})")
+    check(p_moved > 0 and s_moved > 0, "params or BatchNorm statistics did not move")
+    # bf16 serving is refused (its integrator would be bf16); the trained
+    # weights serve under ``mixed``: bf16 convs, the f32 rollout kernel.
+    mixed = ExperimentConfig(**{**FLAGSHIP, "precision": "mixed"})
+    served = build_separable_network(mixed, dev, torch.Generator().manual_seed(0))
+    served.load_state_dict(state.model.state_dict())
+    fc = Forecaster(served, mixed, batch_size=B, n_forecast=N_FORECAST, device=dev)
+    reset_launch_counts()
+    frames = fc.predict(seq[:B, :cfg.nt_cond].cpu().numpy())
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    print(f"  the trained weights served under mixed, B{B} x {N_FORECAST}: rollout kernel "
+          f"launches {launches}, frames in [{frames.min():.3f}, {frames.max():.3f}]")
+    check(launches == {"cluster": 1, "stream": 0}, "one cluster-kernel launch for the request")
+    check(frames.shape == (B, N_FORECAST) + cfg.frame_shape and bool(np.isfinite(frames).all())
+          and bool(((frames >= 0) & (frames <= 1)).all()), "trained-model forecast")
+
+    print(f"timing the train step on {smi}")
+    bf16_ms = time_train_steps(state, step, cond, target)
+    print(f"  flagship bf16 B{cfg.batch_size}: {bf16_ms:.3f} ms/step, "
+          f"{cfg.batch_size / bf16_ms * 1e3:.1f} samples/s ({WARMUP_STEPS} warm-up, mean of "
+          f"{TIMED_STEPS} steps)")
+    parts = split_train_step(state, cfg, cond, target)
+    total = sum(parts.values())
+    print("  one step by CUDA events (median of 10): " + ", ".join(
+        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()))
+    profile_train_steps(state, step, cond, target)
+    flops = step_flops(state, cfg, cond, target)
+    peak = next((v for k, v in BF16_PEAKS.items() if k in card), BF16_PEAK_SXM)
+    print(f"  FLOPs of one step (forward and backward, torch.utils.flop_counter): "
+          f"{flops / 1e12:.4f} TFLOP = {flops / cfg.batch_size / 3 / 1e9:.3f} GFLOP forward a "
+          f"sample if backward is twice forward; {flops / bf16_ms / 1e9:.1f} TFLOP/s, "
+          f"{flops / bf16_ms / 1e9 / (peak / 1e12):.1%} of the {peak / 1e12:.0f} TFLOP/s "
+          f"dense bf16 peak (NVIDIA H100 data sheet)")
+    del state, step
+    f32_cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
+    f32_state = create_train_state(f32_cfg, steps_per_epoch=100, device=dev)
+    f32_step = make_train_step(f32_state.model, f32_cfg, f32_state.optimizer)
+    f32_ms = time_train_steps(f32_state, f32_step, cond, target)
+    print(f"  the same step in f32, TF32 off: {f32_ms:.3f} ms/step, "
+          f"{cfg.batch_size / f32_ms * 1e3:.1f} samples/s; bf16 is {f32_ms / bf16_ms:.2f}x as fast")
+    parts = split_train_step(f32_state, f32_cfg, cond, target)
+    total = sum(parts.values())
+    print("  f32 step by CUDA events (median of 10): " + ", ".join(
+        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()))
+    profile_train_steps(f32_state, f32_step, cond, target)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def main() -> None:
@@ -401,6 +704,12 @@ def main() -> None:
     print(f"  bound: {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
           f"{t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
           f"{t_bytes:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+
+    # -- 6. the train step, card against CPU -------------------------------
+    train_step_card_vs_cpu(dev)
+
+    # -- 7. the flagship train step ------------------------------------------
+    flagship_train(dev, smi, card)
 
     sources = {"cluster": "mlp_resnet_rollout_cluster.cu", "stream": "mlp_resnet_rollout.cu"}
     paths = {"cluster": ("serving, 1-block integrator", launches["cluster"]),

@@ -12,6 +12,9 @@
 The encoder flattens its 4x4 map channel-major ``(c, h, w)`` like the
 reference; the JAX package flattens ``(h, w, c)``, so ``to_code``'s rows
 are permuted when its weights are carried across (``utils/weights.py``).
+
+Both compute in ``dtype`` with BatchNorm IO in ``bn_dtype`` (see
+``models/layers.py``); codes and frames come out in ``dtype``.
 """
 
 from __future__ import annotations
@@ -23,14 +26,21 @@ from torch import nn
 
 from spatiotemporal_variable_separation_tpu_torch.core.activations import activation
 from spatiotemporal_variable_separation_tpu_torch.core.inits import init_layer_
-from spatiotemporal_variable_separation_tpu_torch.models.layers import ConvBlock, merge_time
+from spatiotemporal_variable_separation_tpu_torch.models.layers import (
+    ConvBlock,
+    linear,
+    merge_time,
+)
 
 
 def mix_codes(mixing: str, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
     """Combine S and T codes: feature concat or elementwise product
-    (reference ``conv.py:220-223``)."""
+    (reference ``conv.py:220-223``), in the promoted type of the two as
+    ``jnp.concatenate`` gives it (a bf16 S code and an f32 T code under
+    ``mixed`` concatenate in f32; the first conv then casts to bf16)."""
     if mixing == "concat":
-        return torch.cat([z1, z2], dim=-1)
+        dtype = torch.promote_types(z1.dtype, z2.dtype)
+        return torch.cat([z1.to(dtype), z2.to(dtype)], dim=-1)
     return z1 * z2
 
 
@@ -39,10 +49,13 @@ class DCGAN64Encoder(nn.Module):
 
     def __init__(self, in_channels: int, nh: int, nf: int, *,
                  generator: torch.Generator, init_type: str = "normal",
-                 init_gain: float = 0.02):
+                 init_gain: float = 0.02, dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         kw = dict(kernel=4, stride=2, padding=1, act="leaky_relu",
-                  init_type=init_type, init_gain=init_gain, generator=generator)
+                  init_type=init_type, init_gain=init_gain, generator=generator,
+                  dtype=dtype, bn_dtype=bn_dtype)
         widths = [in_channels, nf, nf * 2, nf * 4, nf * 8]
         # First conv has no BatchNorm (reference conv.py:119).
         self.stage_0 = ConvBlock(widths[0], widths[1], bn=False, **kw)
@@ -58,7 +71,7 @@ class DCGAN64Encoder(nn.Module):
         for stage in (self.stage_0, self.stage_1, self.stage_2, self.stage_3):
             x = stage(x)
             skips.append(x)
-        h = self.to_code(x.flatten(1))
+        h = linear(self.to_code, x.flatten(1), self.dtype)
         if return_skip:
             return h, skips[::-1]
         return h
@@ -75,13 +88,15 @@ class DCGAN64Decoder(nn.Module):
     def __init__(self, nz: int, nc: int, nf: int, *, generator: torch.Generator,
                  skip: bool = False, last_activation: Optional[str] = None,
                  mixing: str = "concat", init_type: str = "normal",
-                 init_gain: float = 0.02):
+                 init_gain: float = 0.02, dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.skip = skip
         self.mixing = mixing
         self.last_act = activation(last_activation)
         coef = 2 if skip else 1
-        kw = dict(init_type=init_type, init_gain=init_gain, generator=generator)
+        kw = dict(init_type=init_type, init_gain=init_gain, generator=generator,
+                  dtype=dtype, bn_dtype=bn_dtype)
         up = dict(kernel=4, stride=2, padding=1, transpose=True, act="leaky_relu", **kw)
         self.first_upconv = ConvBlock(nz, nf * 8, kernel=4, stride=1, padding=0,
                                       transpose=True, act="leaky_relu", **kw)
@@ -100,8 +115,8 @@ class DCGAN64Decoder(nn.Module):
         h = self.first_upconv(z.reshape(z.shape[0], z.shape[-1], 1, 1))
         for i, stage in enumerate((self.up_0, self.up_1, self.up_2)):
             if skip is not None:
-                h = torch.cat([h, skip[i]], dim=1)
+                h = torch.cat([h, skip[i].to(h.dtype)], dim=1)
             h = stage(h)
         if skip is not None:
-            h = torch.cat([h, skip[3]], dim=1)
+            h = torch.cat([h, skip[3].to(h.dtype)], dim=1)
         return self.last_act(self.to_frame(h))

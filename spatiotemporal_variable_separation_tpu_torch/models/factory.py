@@ -1,10 +1,11 @@
 """Model factory: a validated config -> the port's modules.
 
-Torch counterpart of the JAX package's ``models/factory.py:121-149``
+Torch counterpart of the JAX package's ``models/factory.py:35-61, 121-149``
 (reference ``main.py:116-140``) for what the port runs so far: the DCGAN-64
-encoder/decoder pair and the MLP-ResNet integrator, in f32.  Every weight is
-drawn from the caller's ``torch.Generator`` on the CPU, so one seed builds
-the same model on every machine, and the model is then moved to ``device``.
+encoder/decoder pair and the MLP-ResNet integrator, under the three precision
+policies.  Every weight is drawn from the caller's ``torch.Generator`` on the
+CPU, so one seed builds the same model on every machine, and the model is
+then moved to ``device``.  Parameters are f32 under every policy.
 """
 
 from __future__ import annotations
@@ -20,6 +21,25 @@ from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPRe
 from spatiotemporal_variable_separation_tpu_torch.models.separable import SeparableNetwork
 
 
+def compute_dtype(precision: str) -> torch.dtype:
+    """The encoders' and decoder's compute type: f32 for ``f32``, else bf16."""
+    return torch.float32 if precision == "f32" else torch.bfloat16
+
+
+def bn_io_dtype(cfg: ExperimentConfig) -> torch.dtype:
+    """BatchNorm IO type: f32 under ``--bn_io f32`` (the default), the compute
+    type under ``--bn_io compute``.  Statistics are f32 either way."""
+    if cfg.bn_io == "compute":
+        return compute_dtype(cfg.precision)
+    return torch.float32
+
+
+def integrator_dtype(precision: str) -> torch.dtype:
+    """``mixed`` keeps the temporal integrator in f32 while the conv stacks
+    run bf16; ``bf16`` runs it in bf16."""
+    return torch.float32 if precision in ("f32", "mixed") else torch.bfloat16
+
+
 def build_separable_network(cfg: ExperimentConfig, device: torch.device,
                             generator: torch.Generator) -> SeparableNetwork:
     """Assemble the forecaster from a config; ``generator`` must be a CPU
@@ -33,13 +53,10 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     if cfg.no_s:
         raise NotImplementedError(
             "--no_s (ConstantS) comes with ROADMAP.md Queue 1, slice 7")
-    if cfg.precision != "f32":
-        raise NotImplementedError(
-            f"precision {cfg.precision!r}: the port serves f32 only; bf16 and "
-            "mixed come with the train step (ROADMAP.md Queue 1, slice 2)")
     g = generator
     in_channels = cfg.nt_cond * cfg.channels
-    enc = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g)
+    enc = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g,
+               dtype=compute_dtype(cfg.precision), bn_dtype=bn_io_dtype(cfg))
     es = DCGAN64Encoder(in_channels, cfg.code_size_s, cfg.enc_hidden_size, **enc)
     et = DCGAN64Encoder(in_channels, cfg.code_size_t, cfg.enc_hidden_size, **enc)
     nz = (cfg.code_size_s + cfg.code_size_t if cfg.mixing == "concat"
@@ -49,7 +66,9 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
                              mixing=cfg.mixing, **enc)
     t_resnet = MLPResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size,
                          init_type=cfg.init_resnet, init_gain=cfg.gain_resnet,
-                         generator=g)
+                         generator=g, dtype=integrator_dtype(cfg.precision))
     model = SeparableNetwork(Es=es, Et=et, t_resnet=t_resnet, decoder=decoder,
-                             skipco=cfg.skipco)
+                             nt_cond=cfg.nt_cond, skipco=cfg.skipco,
+                             decode_mode=cfg.decode_mode, remat=cfg.remat,
+                             fused_loss=cfg.fused_loss)
     return model.to(device)

@@ -16,6 +16,11 @@ one model in eval mode on one device and answers requests of up to
   deterministic algorithms 123 ms a call instead of 88 ms);
 * the T rollout runs in a hand-written CUDA kernel (``ops/rollout.py``
   picks it from the shapes), the encoders and decoder in PyTorch;
+* precision ``f32`` or ``mixed``: under ``mixed`` the encoders and decoder
+  compute in bf16 and the T code is cast to f32 for the same rollout
+  kernel, as the JAX package's ``mixed`` integrator runs in f32.  ``bf16``
+  is refused: the JAX package rolls T with a bf16 integrator there, and the
+  kernels take f32, so they would compute something else;
 * the device is the card unless the caller asks for the CPU: with no card
   present, constructing a Forecaster without ``device="cpu"`` raises.
 
@@ -44,6 +49,11 @@ class Forecaster:
 
     def __init__(self, model: torch.nn.Module, cfg, batch_size: int, n_forecast: int,
                  device=None):
+        if cfg.precision == "bf16":
+            raise NotImplementedError(
+                "bf16 serving rolls T with a bf16 integrator in the JAX package; the "
+                "port's rollout kernels take f32.  It waits for a bf16 rollout "
+                "(ROADMAP.md Queue 1, slice 6); serve with precision 'mixed' or 'f32'")
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Forecaster: no CUDA device is available; pass "
@@ -104,7 +114,7 @@ class Forecaster:
             cond = np.concatenate([cond, pad], axis=0)
         x = torch.from_numpy(np.ascontiguousarray(cond, dtype=np.float32))
         out = self.forecast(x.to(self.device))
-        return out[:b].cpu().numpy()
+        return out[:b].float().cpu().numpy()  # numpy has no bf16
 
     def benchmark(self, n_iters: int = 50, warmup: int = 5) -> Dict[str, Any]:
         """Steady-state latency of ``forecast`` on a device-resident batch;

@@ -5,7 +5,9 @@
 numpy arrays (``jax.tree.map(np.asarray, variables)``) and writes them into
 a port module in place.  It is the port's own version of the layout
 mappings in the JAX package's ``utils/export.py:106-179`` and
-``utils/transplant.py:63-114``:
+``utils/transplant.py:63-114``, factored as ``flax_to_torch`` so that it
+carries any params-shaped tree (params, gradients, optax Adam's ``mu`` and
+``nu``):
 
 =============== ========================= ==========================
 layer           flax kernel               torch weight
@@ -23,6 +25,9 @@ call order, so the walk goes over the torch layers in that order and finds
 each one's flax leaf by its path (a tree that came back with sorted keys
 still matches).  Kind and shape are asserted at every position, and a flax
 leaf that no torch layer took is an error.
+
+``load_optax_adam_state`` fills a torch Adam's moments and step count from
+an optax Adam state through the same map.
 """
 
 from __future__ import annotations
@@ -76,32 +81,40 @@ def _copy(dst: torch.Tensor, value, loc: str, what: str) -> None:
     if tuple(dst.shape) != value.shape:
         raise ValueError(f"{loc}: {what} shape {value.shape} does not match torch "
                          f"{tuple(dst.shape)} - wrong architecture config?")
-    dst.copy_(torch.from_numpy(value))
+    dst.copy_(torch.from_numpy(value).to(dst.device))
 
 
-def load_flax_variables(model: nn.Module, params: Dict,
-                        batch_stats: Optional[Dict] = None) -> nn.Module:
-    """Fill ``model``'s weights and BatchNorm statistics from flax variables.
+def _param_name(module_name: str, leaf: str) -> str:
+    return f"{module_name}.{leaf}" if module_name else leaf
 
-    ``params``/``batch_stats`` are the subtrees of the flax module that
-    ``model`` mirrors (the whole ``variables['params']`` for a
-    ``SeparableNetwork``).  Returns ``model``.
+
+def _flax_path(module_name: str) -> Path:
+    """The flax path of a torch module name ("" is the root)."""
+    return tuple(module_name.split(".")) if module_name else ()
+
+
+def flax_to_torch(model: nn.Module, tree: Dict, what: str = "params") -> Dict[str, np.ndarray]:
+    """Map a params-shaped flax tree into ``model``'s torch layout.
+
+    ``tree`` is any tree shaped like ``variables['params']`` of the flax
+    module that ``model`` mirrors: the params themselves, their gradients,
+    or optax Adam's ``mu``/``nu``.  Returns ``{torch parameter name: array
+    in the torch layout}``.  BatchNorm statistics are not params and
+    are not in the result.
     """
+    out: Dict[str, np.ndarray] = {}
     consumed = set()
     last_conv: Optional[Tuple[str, int]] = None  # (name, out_channels) since the last dense
     for name, kind, m in _torch_units(model):
-        path = tuple(name.split("."))
+        path = _flax_path(name)
         loc = f"flax {'/'.join(path)} -> torch {name!r} ({kind})"
-        leaf = _get(params, path, loc, "params")
+        leaf = _get(tree, path, loc, what)
         consumed.add(path)
         if kind == "bn":
             if "scale" not in leaf:
                 raise ValueError(f"{loc}: layer-kind mismatch (flax side has {sorted(leaf)})")
-            _copy(m.weight, leaf["scale"], loc, "BatchNorm scale")
-            _copy(m.bias, leaf["bias"], loc, "BatchNorm bias")
-            stats = _get(batch_stats, path, loc, "batch_stats")
-            _copy(m.running_mean, stats["mean"], loc, "running mean")
-            _copy(m.running_var, stats["var"], loc, "running var")
+            out[_param_name(name, "weight")] = np.asarray(leaf["scale"])
+            out[_param_name(name, "bias")] = np.asarray(leaf["bias"])
             continue
         kernel = np.asarray(leaf.get("kernel"))
         if kernel.ndim != (2 if kind == "dense" else 4):
@@ -128,10 +141,46 @@ def load_flax_variables(model: nn.Module, params: Dict,
         else:  # convT: flax's ConvTranspose kernel is spatially flipped
             w = kernel[::-1, ::-1].transpose(2, 3, 0, 1)
             last_conv = (name, m.out_channels)
-        _copy(m.weight, w, loc, "weight")
-        _copy(m.bias, leaf["bias"], loc, "bias")
-    unused = [p for p in _flax_leaves(params) if p not in consumed]
+        out[_param_name(name, "weight")] = np.ascontiguousarray(w)
+        out[_param_name(name, "bias")] = np.asarray(leaf["bias"])
+    unused = [p for p in _flax_leaves(tree) if p not in consumed]
     if unused:
         raise ValueError("flax layers with no torch counterpart: " +
                          ", ".join("/".join(p) for p in unused))
+    return out
+
+
+def load_flax_variables(model: nn.Module, params: Dict,
+                        batch_stats: Optional[Dict] = None) -> nn.Module:
+    """Fill ``model``'s weights and BatchNorm statistics from flax variables.
+
+    ``params``/``batch_stats`` are the subtrees of the flax module that
+    ``model`` mirrors (the whole ``variables['params']`` for a
+    ``SeparableNetwork``).  Returns ``model``.
+    """
+    named = dict(model.named_parameters())
+    for name, value in flax_to_torch(model, params).items():
+        _copy(named[name], value, f"torch {name!r}", "weight")
+    for name, kind, m in _torch_units(model):
+        if kind == "bn":
+            loc = f"flax {'/'.join(_flax_path(name))} -> torch {name!r} (bn)"
+            stats = _get(batch_stats, _flax_path(name), loc, "batch_stats")
+            _copy(m.running_mean, stats["mean"], loc, "running mean")
+            _copy(m.running_var, stats["var"], loc, "running var")
     return model
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: nn.Module,
+                          mu: Dict, nu: Dict, count: int) -> None:
+    """Fill a ``torch.optim.Adam`` over ``model.parameters()`` from an optax
+    Adam state (``ScaleByAdamState``: ``count``, and ``mu``/``nu`` trees
+    shaped like the params, as numpy), so a JAX train state crosses over
+    whole.  optax's ``count`` is torch's per-parameter ``step``."""
+    mus, nus = flax_to_torch(model, mu, "Adam mu"), flax_to_torch(model, nu, "Adam nu")
+    for name, p in model.named_parameters():
+        state = optimizer.state[p]
+        state["step"] = torch.tensor(float(count), dtype=torch.float32)
+        for key, arrays in (("exp_avg", mus), ("exp_avg_sq", nus)):
+            buf = torch.empty_like(p)
+            _copy(buf, arrays[name], f"torch {name!r}", f"Adam {key}")
+            state[key] = buf

@@ -51,10 +51,13 @@ def randomized(tree: dict, rng: np.random.Generator) -> dict:
 
 
 def random_variables(flax_module, *inputs, seed: int = 0, **kwargs) -> dict:
-    """Initialise ``flax_module`` on ``inputs`` and redraw every variable."""
-    v = flax_module.init(jax.random.PRNGKey(0), *inputs, **kwargs)
+    """The variables of ``flax_module`` on ``inputs``, every one redrawn.
+
+    Only their shapes are taken from flax (``jax.eval_shape``, so nothing is
+    initialised op by op)."""
+    shapes = jax.eval_shape(lambda: flax_module.init(jax.random.PRNGKey(0), *inputs, **kwargs))
     rng = np.random.default_rng(seed)
-    return {col: randomized(dict(tree), rng) for col, tree in v.items()}
+    return {col: randomized(dict(tree), rng) for col, tree in shapes.items()}
 
 
 def port(module: torch.nn.Module, variables: dict) -> torch.nn.Module:
@@ -136,3 +139,60 @@ def test_load_rejects_missing_and_unused_layers():
     with pytest.raises(ValueError, match="no flax batch_stats"):
         load_flax_variables(tl.ConvBlock(3, 4, 4, stride=2, padding=1, generator=GEN),
                             v["params"], None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_train_mode_matches_flax(dtype):
+    """flax ``BatchNorm(use_running_average=False)`` against the port's
+    ``BatchNorm`` in train mode: the output, and the new running mean and
+    (biased) variance.  A bf16 input keeps f32 statistics on both sides
+    (flax promotes them to f32), so only the input's own rounding differs
+    from f32: the same tolerance holds for the statistics, and the output
+    is compared in f32 against flax fed the same bf16 values."""
+    from flax import linen as fnn
+
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((3, 5, 6, 8)) * 1.5 + 0.7).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    fm = fnn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=jnp.float32)
+    v = random_variables(fm, xj, use_running_average=False)
+    ref, mut = fm.apply(v, xj, use_running_average=False, mutable=["batch_stats"])
+    bn = tl.BatchNorm(8)
+    load_flax_variables(bn, v["params"], v["batch_stats"])
+    out = bn.train()(torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(nhwc(out), np.asarray(ref), atol=ATOL)
+    np.testing.assert_allclose(bn.running_mean.numpy(), mut["batch_stats"]["mean"], rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(bn.running_var.numpy(), mut["batch_stats"]["var"], rtol=1e-5)
+    # Eval mode normalizes with the updated running statistics, as flax does.
+    ref_eval = fm.apply({"params": v["params"], **mut}, xj, use_running_average=True)
+    np.testing.assert_allclose(nhwc(bn.eval()(torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2))),
+                               np.asarray(ref_eval), atol=ATOL)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("precision", ["bf16", "bf16-bn-compute"])
+def test_conv_block_bf16_train_mode_matches_flax(transpose, precision):
+    """A bf16 ConvBlock in train mode (f32 params cast at call time, BN IO in
+    f32 or in the compute type) against flax's ``dtype=bfloat16``.  Both
+    round the conv in bf16 but at other places, so the tolerance is a few
+    bf16 roundings (2^-8 = 3.9e-3 relative) of the O(1) normalized output:
+    rtol 2e-2, atol 2e-2."""
+    bn_dtype = torch.bfloat16 if precision == "bf16-bn-compute" else torch.float32
+    x = np.random.default_rng(5).standard_normal((4, 8, 8, 6)).astype(np.float32)
+    fm = jl.ConvBlock(features=8, kernel=4, stride=2, padding=1, transpose=transpose,
+                      dtype=jnp.bfloat16,
+                      bn_dtype=jnp.bfloat16 if bn_dtype == torch.bfloat16 else jnp.float32)
+    v = random_variables(fm, jnp.asarray(x))
+    ref, mut = fm.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    tm = port(tl.ConvBlock(6, 8, 4, stride=2, padding=1, transpose=transpose, generator=GEN,
+                           dtype=torch.bfloat16, bn_dtype=bn_dtype), v).train()
+    out = tm(nchw(x))
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    out.float().sum().backward()
+    assert tm.conv.weight.grad.dtype == torch.float32
+    np.testing.assert_allclose(nhwc(out.float()), np.asarray(ref, np.float32), rtol=2e-2,
+                               atol=2e-2)
+    np.testing.assert_allclose(tm.bn.running_var.numpy(),
+                               mut["batch_stats"]["bn"]["var"], rtol=1e-2)

@@ -21,7 +21,9 @@ from spatiotemporal_variable_separation_tpu.models.integrator import MLPResnet a
 from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
 from spatiotemporal_variable_separation_tpu_torch.models import conv as tconv
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
+from spatiotemporal_variable_separation_tpu_torch.models import layers as tl
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
+from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
 from test_torch_layers import ATOL, GEN, nchw, nhwc, port, random_variables
 
 NF = 8
@@ -127,14 +129,64 @@ def test_decode_auto_chunking_matches_single_fold():
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(), atol=1e-6)
 
 
-def test_train_mode_forecast_is_refused():
-    _, _, tmodel, cond = _models()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmodel.train().get_forecast(torch.from_numpy(cond), 3)
+@pytest.mark.parametrize("decode_mode,skipco", [("stepwise", False), ("batched", True)])
+def test_train_mode_forecast_matches_flax(decode_mode, skipco):
+    """Train mode: the integrator module looped under autograd (residuals
+    returned), BatchNorm on batch statistics with its running statistics
+    advanced once per decoder call (per step when stepwise, once for the
+    batched fold), against JAX's ``train=True``."""
+    jmodel, v, tmodel, cond = _models(decode_mode=decode_mode, skipco=skipco)
+    n = 4
+    (ref, ref_t, _, ref_res), mut = jmodel.apply(
+        v, jnp.asarray(cond), n, train=True, method=jmodel.get_forecast,
+        mutable=["batch_stats"])
+    tmodel.train()
+    calls = []
+    tmodel.decoder.register_forward_hook(lambda m, args, out: calls.append(out.shape[0]))
+    out, t_codes, _, res = tmodel.get_forecast(torch.from_numpy(cond), n)
+    assert calls == ([3] * n if decode_mode == "stepwise" else [3 * n])
+    assert out.requires_grad and res.requires_grad
+    assert res.shape == ref_res.shape == (n - 1, 1, 3, 8)
+    np.testing.assert_allclose(t_codes.detach().numpy(), np.asarray(ref_t), atol=ATOL)
+    np.testing.assert_allclose(res.detach().numpy(), np.asarray(ref_res), atol=ATOL)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=ATOL)
+    for name, m in tmodel.named_modules():
+        if isinstance(m, tl.BatchNorm):
+            node = mut["batch_stats"]
+            for k in name.split("."):
+                node = node[k]
+            np.testing.assert_allclose(m.running_mean.numpy(), node["mean"], rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+            np.testing.assert_allclose(m.running_var.numpy(), node["var"], rtol=1e-5,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("precision,compute,integrator", [
+    ("bf16", torch.bfloat16, torch.bfloat16),
+    ("mixed", torch.bfloat16, torch.float32),
+])
+def test_factory_precision_policies(precision, compute, integrator):
+    """bf16 and mixed keep f32 parameters and compute in bf16; ``mixed``
+    keeps the integrator in f32 (the JAX package's ``factory.py:35-61``)."""
+    model = build_separable_network(ExperimentConfig(**{**SMALL, "precision": precision}),
+                                    torch.device("cpu"), GEN)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.Es.dtype == model.Et.dtype == model.decoder.up_0.dtype == compute
+    assert model.decoder.up_0.bn.out_dtype == torch.float32
+    assert model.t_resnet.dtype == integrator
+
+
+def test_bf16_serving_is_refused():
+    """``bf16`` rolls T with a bf16 integrator in the JAX package; the port's
+    rollout kernels take f32, so it does not serve bf16."""
+    cfg = ExperimentConfig(**{**SMALL, "precision": "bf16"})
+    model = build_separable_network(cfg, torch.device("cpu"), GEN)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        Forecaster(model, cfg, 2, 3, device="cpu")
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(precision="bf16"), "f32 only"),
+    (dict(decoder_architecture="mlp"), "slice 7"),
     (dict(architecture="vgg"), "slice 7"),
     (dict(no_s=True, code_size_s=8), "slice 7"),
 ])

@@ -62,6 +62,28 @@ def test_forecaster_matches_jax(skipco):
         ours.predict(np.concatenate([cond, cond[:1]]))
 
 
+def test_mixed_forecaster_matches_jax():
+    """``mixed``: encoders and decoder in bf16, the T code cast to f32 for the
+    rollout (the kernel on the card, its plain version here), against the
+    JAX package's ``mixed`` Forecaster.  Both round the convolutions in
+    bf16 at other places, and the frames come out in bf16, whose ulp near 1
+    is 3.9e-3: measured mean abs difference 7.4e-4, max 3.9e-3; held to 3e-3
+    and 2e-2."""
+    kw = dict(SMALL, precision="mixed")
+    jcfg = JaxConfig(**kw)
+    model = jax_build(jcfg)
+    cond = np.random.default_rng(2).random((B, 5, 64, 64, 1), dtype=np.float32)
+    variables = random_variables(model, jnp.asarray(cond), N, seed=3)
+    ref = jserve.Forecaster(model, jax.tree.map(jnp.asarray, variables), jcfg, B, N).predict(cond)
+    ours = tserve.Forecaster.from_flax_variables(ExperimentConfig(**kw), variables, B, N,
+                                                 device="cpu")
+    assert ours.model.Es.dtype == torch.bfloat16 and ours.model.t_resnet.dtype == torch.float32
+    out = ours.predict(cond)
+    assert out.dtype == np.float32 and out.shape == ref.shape == (B, N, 64, 64, 1)
+    diff = np.abs(out - np.asarray(ref, np.float32))
+    assert diff.mean() <= 3e-3 and diff.max() <= 2e-2, (diff.mean(), diff.max())
+
+
 def test_forecaster_benchmark_reports_latency():
     cfg = ExperimentConfig(**SMALL)
     jmodel = jax_build(JaxConfig(**SMALL))
