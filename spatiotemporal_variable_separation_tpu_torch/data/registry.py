@@ -1,0 +1,93 @@
+"""Dataset dispatch (reference ``var_sep/main.py:70-102``) and training
+iterators.
+
+Torch counterpart of the JAX package's ``data/registry.py`` for what the port
+trains on so far: Moving MNIST, made on the card or on the host.  The other
+datasets raise ``NotImplementedError`` until their slice is ported."""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.data.loader import Batcher, background_iter
+
+
+def _refuse(cfg: ExperimentConfig) -> None:
+    if cfg.data != "mnist":
+        raise NotImplementedError(
+            f"dataset {cfg.data!r}: the port trains on Moving MNIST only so far; the "
+            "WaveEq, TaxiBJ, SST and chairs pipelines come with ROADMAP.md Queue 1, "
+            "slice 8 (remaining datasets)")
+
+
+def make_train_dataset(cfg: ExperimentConfig):
+    _refuse(cfg)
+    from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import MovingMNIST
+
+    return MovingMNIST.make_dataset(cfg.data_dir, 64, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred,
+                                    4, True, cfg.n_object, train=True, seed=cfg.seed)
+
+
+def make_device_generator(cfg: ExperimentConfig, device=None):
+    """The on-device batch generator (``DeviceMovingMNIST``) on ``device``,
+    or None under ``--no-device_datagen`` or when the digits are missing (the
+    host dataset then raises the missing-file error)."""
+    _refuse(cfg)
+    if not cfg.device_datagen:
+        return None
+    from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
+        DeviceMovingMNIST,
+    )
+
+    try:
+        return DeviceMovingMNIST.from_data_dir(
+            cfg.data_dir, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred, cfg.n_object, device=device)
+    except FileNotFoundError:
+        return None
+
+
+def steps_per_epoch(cfg: ExperimentConfig, dataset) -> int:
+    if cfg.steps_per_epoch is not None:
+        return cfg.steps_per_epoch
+    return max(1, len(dataset) // cfg.batch_size)
+
+
+def epoch_iterator(cfg: ExperimentConfig, dataset, epoch: int) -> Iterator:
+    """Yield (cond, target) numpy batches for one epoch: exactly
+    ``steps_per_epoch(cfg, dataset)`` of them, so an explicit
+    ``--steps_per_epoch``, the LR schedule and resume accounting agree.
+
+    Datasets with a vectorized ``generate_batch`` (Moving MNIST) use it on a
+    background thread; map-style datasets go through the shuffled Batcher."""
+    n_steps = steps_per_epoch(cfg, dataset)
+    if hasattr(dataset, "generate_batch"):
+        nt_cond = cfg.nt_cond
+        if hasattr(dataset, "rng"):
+            # Re-seed the stream per (seed, epoch), so that a mid-epoch
+            # resume's skip-replay (train/loop.py) trains on exactly the
+            # batches the interrupted process trained on.
+            dataset.rng = np.random.RandomState((cfg.seed * 1_000_003 + epoch) % 2**32)
+
+        def gen():
+            for _ in range(n_steps):
+                batch = dataset.generate_batch(cfg.batch_size)
+                yield batch[:, :nt_cond], batch[:, nt_cond:]
+
+        if cfg.num_workers <= 0:
+            yield from gen()
+        else:
+            yield from background_iter(gen(), max(2, cfg.num_workers))
+    else:
+        # max_batches bounds the producer itself (no orphaned background
+        # thread blocked on a bounded queue when an epoch is truncated).
+        batcher = Batcher(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
+                          drop_last=True, num_workers=cfg.num_workers, max_batches=n_steps)
+        if len(batcher) < n_steps:
+            raise ValueError(
+                f"dataset provides only {len(batcher)} full batches per epoch "
+                f"(size {len(dataset)}, batch {cfg.batch_size}) but "
+                f"steps_per_epoch={n_steps}; reduce --batch_size or --steps_per_epoch")
+        yield from batcher

@@ -26,8 +26,10 @@ one model in eval mode on one device and answers requests of up to
 
 Typical use::
 
+    fc = Forecaster.from_xp_dir(xp_dir, batch_size=64, n_forecast=100,
+                                precision="mixed")   # the port's checkpoints
     fc = Forecaster.from_flax_variables(cfg, variables_np, batch_size=64,
-                                        n_forecast=100)
+                                        n_forecast=100)  # the JAX package's weights
     frames = fc.predict(cond)          # (b, n_forecast, H, W, C) ndarray
     stats = fc.benchmark()             # latency percentiles
 """
@@ -35,11 +37,12 @@ Typical use::
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from spatiotemporal_variable_separation_tpu_torch.core.device import resolve_device
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
 from spatiotemporal_variable_separation_tpu_torch.utils.weights import load_flax_variables
 
@@ -54,10 +57,7 @@ class Forecaster:
                 "bf16 serving rolls T with a bf16 integrator in the JAX package; the "
                 "port's rollout kernels take f32.  It waits for a bf16 rollout "
                 "(ROADMAP.md Queue 1, slice 6); serve with precision 'mixed' or 'f32'")
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Forecaster: no CUDA device is available; pass "
-                               "device='cpu' to run the plain versions on the CPU")
+        device = resolve_device(device, "Forecaster")
         self.cfg = cfg
         self.batch_size = batch_size
         self.n_forecast = n_forecast
@@ -78,15 +78,24 @@ class Forecaster:
 
     @classmethod
     def from_xp_dir(cls, xp_dir: str, batch_size: int, n_forecast: int,
+                    epoch: Optional[int] = None, precision: Optional[str] = None,
                     device=None) -> "Forecaster":
-        """Not yet available: the JAX package's experiment directories hold
-        Orbax checkpoints, which cannot be read without JAX.  It comes with
-        the port's checkpoint slice (ROADMAP.md Queue 1, slice 4); until then
-        load the variables with the JAX package and use
+        """Serve a checkpoint of the port's training (``checkpoint.py``):
+        ``epoch`` names an epoch checkpoint, else the newest is taken.
+
+        ``precision`` overrides the training precision for serving only, as
+        in the JAX package (parameters are f32 under every policy): a
+        ``bf16``-trained checkpoint is refused unless served under ``mixed``
+        or ``f32``.  The JAX package's experiment directories hold Orbax
+        checkpoints, which the port cannot read; carry those across with
         ``from_flax_variables``."""
-        raise NotImplementedError(
-            "Forecaster.from_xp_dir needs the port's checkpoint slice "
-            "(ROADMAP.md Queue 1, slice 4); use from_flax_variables")
+        from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
+
+        device = resolve_device(device, "Forecaster")
+        model, cfg = load_for_eval(xp_dir, name=str(epoch) if epoch is not None else None,
+                                   overrides={"precision": precision} if precision else None,
+                                   device=device)
+        return cls(model, cfg, batch_size, n_forecast, device=device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -1,0 +1,242 @@
+"""Training driver (reference ``var_sep/train.py:91-175``).
+
+Torch counterpart of the JAX package's ``train/loop.py``, on one device:
+* Moving MNIST is made on the card inside the step
+  (``make_fused_datagen_step``) unless ``--no-device_datagen`` asks for the
+  host pipeline (``epoch_iterator`` on a background thread, then
+  ``prefetch_to_device``);
+* losses are logged (the reference shows a progress bar only), lagged by
+  one log boundary so that reading them does not drain the device queue;
+* checkpoints carry the optimizer state and resume bit-exactly mid-epoch:
+  every draw of a step is a function of ``(cfg.seed, step)``;
+* SIGTERM and Ctrl-C stop between steps and still save ``final``
+  (``train.py:172-175``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import threading
+import time
+from typing import Callable, Dict
+
+import torch
+
+from spatiotemporal_variable_separation_tpu_torch.checkpoint import (
+    list_checkpoints,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.core.device import resolve_device
+from spatiotemporal_variable_separation_tpu_torch.data.loader import prefetch_to_device
+from spatiotemporal_variable_separation_tpu_torch.data.registry import (
+    epoch_iterator,
+    make_device_generator,
+    make_train_dataset,
+    steps_per_epoch,
+)
+from spatiotemporal_variable_separation_tpu_torch.train.state import TrainState, create_train_state
+from spatiotemporal_variable_separation_tpu_torch.train.step import (
+    make_fused_datagen_step,
+    make_train_step,
+)
+from spatiotemporal_variable_separation_tpu_torch.utils.profiling import MetricsLogger, trace
+
+
+def refuse_parallel(cfg: ExperimentConfig) -> None:
+    """The port trains on one device so far: more raises."""
+    if (cfg.num_devices or 1) > 1 or cfg.model_parallel > 1:
+        raise NotImplementedError(
+            f"--num_devices {cfg.num_devices} / --model_parallel {cfg.model_parallel}: the "
+            "port trains on one device so far; data and tensor parallelism come with "
+            "ROADMAP.md Queue 1, slice 9 (parallelism)")
+
+
+def _fetch(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The metrics as floats, in one device->host copy."""
+    values = torch.stack([v.float() for v in metrics.values()]).tolist()
+    return dict(zip(metrics, values))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: int = 50,
+                 log_fn: Callable[[str], None] = print, resume: bool = False,
+                 profile: bool = False, monitor_stability: bool = False) -> TrainState:
+    """Train ``cfg`` and return the final state.  The device is the card
+    unless the caller asks for the CPU (``device="cpu"``); without a card
+    this raises.  ``dataset``: a host dataset that wins over device
+    synthesis.  ``log_every``: steps between loss lines (0: none)."""
+    cfg = cfg.validate()
+    refuse_parallel(cfg)
+    if monitor_stability:
+        raise NotImplementedError(
+            "--monitor_stability probes with eval/diagnostics.py, which the port has not "
+            "yet; it comes with ROADMAP.md Queue 1, slice 10 (operations tooling)")
+    device = resolve_device(device, "run_training")
+    # Freeze steps_per_epoch across resumes: the MultiStep schedule is
+    # step // steps_per_epoch, so a resumed run with another dataset size or
+    # --steps_per_epoch would silently move every epoch milestone.  The
+    # first run writes the derived value into params.json; resumed runs
+    # adopt it.
+    params_path = os.path.join(cfg.xp_dir, "params.json")
+    if resume and os.path.isfile(params_path):
+        saved = ExperimentConfig.from_json_file(params_path)
+        if cfg.steps_per_epoch is None and saved.steps_per_epoch is not None:
+            cfg = dataclasses.replace(cfg, steps_per_epoch=saved.steps_per_epoch)
+            log_fn(f"resume: adopting frozen steps_per_epoch={cfg.steps_per_epoch}")
+        # Log any other drift, and make params.json record the config the
+        # resumed run actually uses.
+        diffs = {f.name: (getattr(saved, f.name), getattr(cfg, f.name))
+                 for f in dataclasses.fields(cfg)
+                 if getattr(saved, f.name) != getattr(cfg, f.name)}
+        if diffs:
+            for k, (old, new) in sorted(diffs.items()):
+                log_fn(f"resume: config field {k!r} changed: {old!r} -> {new!r}")
+            cfg.save(params_path)
+    # an explicitly passed dataset always wins over device synthesis.
+    device_gen = make_device_generator(cfg, device) if dataset is None else None
+    if dataset is None and device_gen is None:
+        dataset = make_train_dataset(cfg)
+    n_steps = steps_per_epoch(cfg, dataset if dataset is not None else device_gen)
+    if cfg.steps_per_epoch is None:
+        cfg = dataclasses.replace(cfg, steps_per_epoch=n_steps)
+        if os.path.isfile(params_path):
+            cfg.save(params_path)
+
+    state = create_train_state(cfg, n_steps, device)
+    if resume and list_checkpoints(cfg.xp_dir):
+        restore_checkpoint(cfg.xp_dir, state)
+        log_fn(f"resumed from step {state.step}")
+    if device_gen is not None:
+        fused_step = make_fused_datagen_step(state.model, cfg, state.optimizer, device_gen)
+    else:
+        step = make_train_step(state.model, cfg, state.optimizer)
+
+    log_fn(f"training: {cfg.data}/{cfg.architecture} on 1 device(s) ({device}), "
+           f"{cfg.epochs} epochs x {n_steps} steps, batch {cfg.batch_size}, "
+           f"precision {cfg.precision}")
+    mlog = MetricsLogger(cfg.xp_dir) if os.path.isdir(cfg.xp_dir) else None
+    t_start = time.time()
+
+    # Preemption safety: a SIGTERM sets a flag that the loop checks between
+    # steps, so the stop never lands inside a step (half-applied Adam
+    # updates).  Only installable from the main thread; restored on exit.
+    stop_requested = threading.Event()
+    prev_handler = None
+    handler_installed = False
+    if threading.current_thread() is threading.main_thread():
+        def _on_sigterm(signum, frame):
+            stop_requested.set()
+        # signal.signal returns None for handlers installed outside Python,
+        # so restoration is gated on our own flag, not on the return value.
+        prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        handler_installed = True
+    pending_log = None  # (step, epoch, device-resident metrics)
+
+    def flush_pending():
+        nonlocal pending_log
+        if pending_log is None:
+            return
+        pstep, pepoch, pmetrics = pending_log
+        pending_log = None
+        m = _fetch(pmetrics)
+        log_fn(f"epoch {pepoch} step {pstep}: loss {m['loss']:.5f} "
+               f"(ae {m['ae']:.5f} s_inv {m['s_inv']:.5f} "
+               f"pred {m['forecast']:.5f} t_reg {m['t_reg']:.5f})")
+        if mlog is not None:
+            mlog.log(pstep, m)
+
+    try:
+        def updates(epoch, skip=0):
+            # ``skip``: batches of this epoch consumed before a mid-epoch
+            # interrupt; without it a resumed run would re-run the whole
+            # epoch, overshoot the step budget and shift the milestones.
+            if device_gen is not None:
+                # batches are keyed on state.step, so skipping is implicit.
+                for _ in range(n_steps - skip):
+                    yield fused_step
+            else:
+                it = epoch_iterator(cfg, dataset, epoch)
+                for _ in range(skip):
+                    next(it, None)  # the (seed, epoch)-seeded stream replays
+                    # exactly the batches trained on before the interrupt
+                for c, t in prefetch_to_device(it, 2, device):
+                    yield lambda s, c=c, t=t: step(s, c, t)
+
+        # The step count lives on the host (state.step), never read back
+        # from the device.
+        start_epoch = state.step // n_steps
+        metrics = None
+        first_step_t0 = time.time()
+        # --profile traces steps 3..13; they are normal training steps.
+        profile_after = state.step + 3 if profile else -1
+        profile_ctx = None
+        for epoch in range(start_epoch, cfg.epochs):
+            t_epoch = time.time()
+            in_epoch_skip = max(0, state.step - epoch * n_steps)
+            epoch_steps = n_steps - in_epoch_skip
+            for do_update in updates(epoch, in_epoch_skip):
+                if stop_requested.is_set():
+                    raise KeyboardInterrupt  # between steps: the state is whole
+                metrics = do_update(state)
+                if first_step_t0 is not None:
+                    float(metrics["loss"])  # fence: "done" means run, not queued
+                    log_fn(f"first step done in {time.time() - first_step_t0:.1f}s "
+                           "(incl. warm-up)")
+                    first_step_t0 = None
+                if profile and profile_ctx is None and state.step >= profile_after:
+                    _sync(device)
+                    profile_ctx = trace(os.path.join(cfg.xp_dir, "profile"))
+                    profile_ctx.__enter__()
+                    profile_until = state.step + 10
+                elif profile_ctx is not None and state.step >= profile_until:
+                    _sync(device)
+                    profile_ctx.__exit__(None, None, None)
+                    profile_ctx = None
+                    profile = False
+                    log_fn(f"profiler trace written to {cfg.xp_dir}/profile")
+                if log_every and state.step % log_every == 0:
+                    flush_pending()  # values ready ~log_every steps ago
+                    pending_log = (state.step, epoch, metrics)
+            if metrics is not None:
+                # one fence an epoch: honest timing, a bounded device queue.
+                float(metrics["loss"])
+            dt = time.time() - t_epoch
+            sps = epoch_steps * cfg.batch_size / dt if dt > 0 else 0.0
+            flush_pending()  # after the fence: the lagged line is ready
+            log_fn(f"epoch {epoch} done in {dt:.1f}s ({sps:.1f} samples/s)")
+            if mlog is not None and metrics is not None:
+                m = _fetch(metrics)
+                m["samples_per_sec"] = sps
+                mlog.log(state.step, m)
+            if cfg.chkpt_interval is not None and (epoch + 1) % cfg.chkpt_interval == 0:
+                # epoch-numbered like the reference's ov_Es_{N}.pt suffixes.
+                save_checkpoint(cfg.xp_dir, state, name=str(epoch + 1))
+    except KeyboardInterrupt:
+        log_fn("interrupted (Ctrl-C/SIGTERM) — saving final checkpoint")
+    finally:
+        if handler_installed:
+            signal.signal(signal.SIGTERM,
+                          prev_handler if prev_handler is not None else signal.SIG_DFL)
+        # written on EVERY exit path (crashes included), so 'final' is the
+        # newest state.  A failed device (a CUDA error) cannot save; keep
+        # the last periodic checkpoint and let the first error propagate.
+        try:
+            save_checkpoint(cfg.xp_dir, state, name="final")
+        except RuntimeError as e:
+            log_fn(f"final checkpoint skipped: {e}")
+        try:
+            flush_pending()  # lagged boundary line, if one is still held
+        except RuntimeError:
+            pass
+        if mlog is not None:
+            mlog.close()
+    log_fn(f"total time {time.time() - t_start:.1f}s")
+    return state

@@ -7,22 +7,39 @@ statistics), backpropagates, and applies Adam at the step's learning rate.
 Parameters stay f32; the precision policy is the model's (``bf16`` and
 ``mixed`` compute in bf16 and need no loss scaling).
 
-The AE supervision time ``t_random`` is drawn from the state's CPU
-generator, so the draw never waits for the device; a caller may inject it
-instead (the tests do, since ``jax.random`` streams cannot be reproduced in
-torch).
+Every draw of a step is a function of ``(cfg.seed, step)`` alone, as the
+JAX step's ``fold_in(rng, step)`` makes it: the AE supervision time
+``t_random`` comes from the state's CPU generator, reseeded each step from
+``step_seed(cfg.seed, T_SALT, step)`` (so the draw never waits for the
+device), and the fused datagen step's batch from a generator on the data's
+device, reseeded from ``step_seed(cfg.seed, DATA_SALT, step)``.  A resumed run
+therefore needs only the model, the optimizer and the step.  A caller may
+inject ``t_random`` instead (the parity tests do, since ``jax.random``
+streams cannot be reproduced in torch).
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
 
 if TYPE_CHECKING:
+    from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import DeviceMovingMNIST
     from spatiotemporal_variable_separation_tpu_torch.train.state import TrainState
+
+# Salts of the per-step draws (the JAX step folds 2_000_003 into its key for
+# the batch).
+T_SALT, DATA_SALT = 1, 2_000_003
+
+
+def step_seed(seed: int, salt: int, step: int) -> int:
+    """A 64-bit generator seed that depends on ``(seed, salt, step)`` alone."""
+    words = np.random.SeedSequence([seed % 2**64, salt, step]).generate_state(1, np.uint64)
+    return int(words[0])
 
 
 def multistep_lr(lr: float, milestones: List[int], decay: float,
@@ -73,6 +90,7 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
     def step(state: TrainState, cond: torch.Tensor, target: torch.Tensor,
              t_random: Optional[int] = None) -> Dict[str, torch.Tensor]:
         if t_random is None:
+            state.generator.manual_seed(step_seed(cfg.seed, T_SALT, state.step))
             t_random = int(torch.randint(cfg.nt_cond, upper, (), generator=state.generator))
         lr = optimizer.lr_schedule(state.step)
         for group in optimizer.param_groups:
@@ -86,5 +104,32 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
         optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def datagen_batch(generator: DeviceMovingMNIST, cfg: ExperimentConfig, step: int,
+                  rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (cond, target) batch of train step ``step``, made on the
+    generator's device from ``step_seed(cfg.seed, DATA_SALT, step)``.
+    ``rng``: a generator on that device to reseed (a new one if None)."""
+    rng = rng if rng is not None else torch.Generator(device=generator.device)
+    rng.manual_seed(step_seed(cfg.seed, DATA_SALT, step))
+    return generator.generate_device_batch(rng, cfg.batch_size)
+
+
+def make_fused_datagen_step(model: torch.nn.Module, cfg: ExperimentConfig,
+                            optimizer: torch.optim.Adam,
+                            generator: DeviceMovingMNIST) -> Callable:
+    """Build ``step(state, t_random=None) -> metrics`` that makes the step's
+    batch on the card (``datagen_batch``) and runs ``make_train_step``'s
+    update on it (JAX ``train/step.py:117-149``).  The host only seeds a
+    generator and enqueues work: no device->host copy."""
+    inner = make_train_step(model, cfg, optimizer)
+    rng = torch.Generator(device=generator.device)
+
+    def step(state: TrainState, t_random: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        cond, target = datagen_batch(generator, cfg, state.step, rng)
+        return inner(state, cond, target, t_random=t_random)
 
     return step

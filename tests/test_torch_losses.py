@@ -53,6 +53,7 @@ from spatiotemporal_variable_separation_tpu_torch.utils.weights import (
     load_flax_variables,
 )
 from test_torch_layers import GEN, random_variables
+from torch_threads import few_torch_threads  # noqa: F401
 
 LOSS_RTOL = 1e-5
 STATS_RTOL, STATS_ATOL = 1e-5, 1e-6

@@ -95,15 +95,19 @@ def test_forecaster_benchmark_reports_latency():
     assert stats["frames_per_sec"] > 0
 
 
-def test_forecaster_without_a_card_raises(monkeypatch):
-    """``device=None`` means the card; without one there is no quiet CPU path."""
+def test_forecaster_without_a_card_raises(monkeypatch, tmp_path):
+    """``device=None`` means the card; without one there is no quiet CPU path.
+    ``from_xp_dir`` reads the port's checkpoints (``tests/test_torch_checkpoint.py``);
+    a directory without them raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     jmodel = jax_build(JaxConfig(**SMALL))
     variables = random_variables(jmodel, jnp.zeros((1, 5, 64, 64, 1)), 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.Forecaster.from_flax_variables(ExperimentConfig(**SMALL), variables, 2, 3)
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        tserve.Forecaster.from_xp_dir(".", 2, 3, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.Forecaster.from_xp_dir(str(tmp_path), 2, 3)
+    with pytest.raises(FileNotFoundError):
+        tserve.Forecaster.from_xp_dir(str(tmp_path), 2, 3, device="cpu")
 
 
 def _port_modules():

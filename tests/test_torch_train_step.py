@@ -75,6 +75,7 @@ from spatiotemporal_variable_separation_tpu_torch.utils.weights import (
 )
 from test_torch_layers import GEN, random_variables
 from test_torch_losses import NT_COND, NT_PRED, SMALL, as_f64, batch, bn_stats
+from torch_threads import few_torch_threads  # noqa: F401
 
 STEPS_PER_EPOCH = 2
 # MultiStep at epochs 1 and 2 = steps 2 and 4: five steps cross both.
