@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: builds its kernels, holds each
 against its plain PyTorch version on the card, serves the full-width
-Moving-MNIST DCGAN forecaster through them, and trains it at the flagship
-config of ``bench.py``.
+Moving-MNIST DCGAN forecaster through them, trains it at the flagship
+config of ``bench.py`` and scores it with both Moving MNIST protocols.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -50,8 +50,8 @@ result line is printed):
    params, f32 BatchNorm IO, ``fused_loss``) on a fixed synthetic batch of
    moving squares made with numpy from a seed: 40 steps with a finite loss
    that falls, params and BatchNorm statistics that move, and no rollout
-   launch; then the trained weights, served under ``mixed`` (bf16 serving
-   is refused), answer one request through the cluster kernel (1 launch).
+   launch; then the trained weights, served under ``mixed`` (bf16 convs,
+   the f32 rollout), answer one request through the cluster kernel (1 launch).
    Timing: 5 warm-up and 50 timed steps, bf16 and f32 with TF32 off,
    ms/step and samples/s; one step split by CUDA events into forward,
    backward and optimizer; a torch.profiler trace (top device kernels, the
@@ -76,10 +76,42 @@ result line is printed):
       10 steps, samples/s beside 8b's, and the host generator's time a batch;
    e. ``Forecaster.from_xp_dir(xp, 64, 100, precision="mixed")`` on 8b's
       checkpoint answers a 64-window request through the cluster kernel (1
-      launch), within the frame tolerances of a Forecaster over 8b's model.
+      launch), within the frame tolerances of a Forecaster over 8b's model;
+9. the Moving MNIST evaluation, on 10,000 synthetic test digits written as
+   idx files beside 8's training digits, and the test set ``make_test_set``
+   makes of them (5,000 sequences of 100 frames, the reference protocol's
+   count), at the eval batch of 16:
+   a. SSIM on the card with TF32 at torch's global default, 240 frames of
+      64x64x1 and 60 of 64x64x3, against the CPU in f32 and in f64 (a plain
+      f64 SSIM written out here); every value at most 1.  Beside it, the same
+      moments by a one-group cuDNN convolution with TF32 allowed: what the
+      guard in ``ops/ssim.py`` prevents;
+   b. ``Evaluator.score`` of one B 16 nt_pred-10 batch on the card and on the
+      CPU (the full-width seed-0 model of phase 3, f32, TF32 off): per-sequence
+      MSE, PSNR and SSIM within the tolerances below; exactly 1 launch of the
+      cluster kernel at its B 16 plan (C 8, 2 clusters); the kernel against
+      its plain version at B 16 x 100 steps;
+   c. the protocols through their CLIs, in-process, on 8b's bf16 checkpoint:
+      ``cli.test_mnist`` and ``cli.test_mnist_disentanglement`` at nt_pred 10
+      on all 5,000 sequences, ``cli.test_mnist`` at nt_pred 95 cut to
+      ``T95_MAX_BATCHES`` batches, archives capped at ``ARCHIVE_CAP``: finite
+      means, SSIM in (0, 1], the ``evals.json`` records, and 0 rollout
+      launches (the bf16 path loops its integrator).  Then the same
+      protocols through ``evaluate(model_bundle=...)`` on the f32 seed-0
+      model, cut to ``BUNDLE_MAX_BATCHES``: one cluster launch for each
+      kernel-bearing call (a score, or an archived batch's swap forecast);
+   d. the t10 eval of the checkpoint killed after batch 2 and resumed, under
+      ``cudnn.deterministic``: means bitwise equal to the uninterrupted run;
+   e. timing, per protocol: the host's ms a batch (items and stacking), the
+      device's ms a batch by CUDA events (forecast, metrics, SSIM alone), the
+      scoring loop's sequences/s and the device's idle share under the
+      profiler, for the bf16 checkpoint and the f32 model; both kernels at
+      the t10 eval's rollout shapes (B 16 x 15 steps).
 
-The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (its
+serving-path launches, and its launches on each eval path in
+``launches_eval``, with its B 16 plan and times); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -87,6 +119,7 @@ from __future__ import annotations
 import copy
 import csv
 import dataclasses
+import itertools
 import json
 import os
 import signal
@@ -101,7 +134,12 @@ import torch
 
 from spatiotemporal_variable_separation_tpu_torch import ExperimentConfig
 from spatiotemporal_variable_separation_tpu_torch import checkpoint
+from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
 from spatiotemporal_variable_separation_tpu_torch.cli import main as cli_main
+from spatiotemporal_variable_separation_tpu_torch.cli import test_mnist as cli_test_mnist
+from spatiotemporal_variable_separation_tpu_torch.cli import (
+    test_mnist_disentanglement as cli_test_swap,
+)
 from spatiotemporal_variable_separation_tpu_torch.cli.options import build_parser, config_from_args
 from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
     DeviceMovingMNIST,
@@ -110,8 +148,18 @@ from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
 from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import (
     MovingMNIST,
     composite,
+    load_mnist,
+    make_test_set,
     synthetic_digits,
 )
+from spatiotemporal_variable_separation_tpu_torch.eval import common as eval_common
+from spatiotemporal_variable_separation_tpu_torch.eval import mnist as eval_mnist
+from spatiotemporal_variable_separation_tpu_torch.eval import mnist_swap as eval_swap
+from spatiotemporal_variable_separation_tpu_torch.eval.common import (
+    Evaluator,
+    per_sequence_metrics,
+)
+from spatiotemporal_variable_separation_tpu_torch.eval.mnist_swap import SwapDataset
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
 from spatiotemporal_variable_separation_tpu_torch.ops import _build
@@ -121,6 +169,7 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     mlp_resnet_rollout_reference,
     rollout_plan,
 )
+from spatiotemporal_variable_separation_tpu_torch.ops.ssim import ssim_map, ssim_per_frame
 from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
 from spatiotemporal_variable_separation_tpu_torch.train import (
     TrainState,
@@ -197,6 +246,31 @@ HOST_STEPS = 10
 # a fresh batch every step: 0.112 measured on an H100 (40.49 -> 4.55); 0.3
 # leaves ~2.7x room for cuDNN's run-to-run atomics and the bf16 roundings.
 CLI_LOSS_FALL = 0.3
+
+# -- phase 9: evaluation ---------------------------------------------------
+N_TEST_DIGITS = 10_000  # synthetic stand-ins for MNIST's test split: 5,000 sequences
+TEST_SEQ_LEN = 100      # make_test_set's default, the reference's
+EVAL_B = 16             # the eval CLIs' default batch
+ARCHIVE_CAP = 256       # the CLIs' archives: the first 16 batches
+T95_MAX_BATCHES = 32    # the 95-frame protocol on the checkpoint: 512 of 5,000 sequences
+# The f32 bundle's runs, cut to these batches; the first 4 batches archived.
+BUNDLE_MAX_BATCHES = {"mnist_t10": 20, "mnist_swap_t10": 10, "mnist_t95": 8}
+BUNDLE_ARCHIVE_CAP = 64
+RESUME_BATCHES, RESUME_KILL_AFTER = 6, 2
+EVAL_TIMING_BATCHES = 8
+EVAL_ROLLOUT_STEPS = 15  # nt_cond 5 + nt_pred 10: the t10 protocols' rollout
+SSIM_FRAMES = 240
+# SSIM on the card against the CPU (f32 and f64).  f32 moments of values up
+# to 1, 121 products each, carry a few 1e-7 of error, and on a flat stroke
+# the quotient divides it by c2 = 9e-4 (the variances vanish): a few 1e-4 on
+# such pixels of the maps (phase 9a prints the CPU's own f32 against f64 at
+# these frames).  Per-frame means average it to ~1e-6.  TF32 moments carry
+# ~5e-4 relative error, two orders more, and break both bounds.
+SSIM_MAP_TOL, SSIM_FRAME_TOL = 5e-3, 5e-5
+# Per-sequence metrics of the seed-0 model, card against CPU, f32 with TF32
+# off, 15 frames: the frames agree to ~1e-6 (cuDNN against oneDNN sums); an
+# MSE of ~0.1 moves by ~1e-6 relative, PSNR by 4.34x that in dB.
+EVAL_MSE_RTOL, EVAL_PSNR_ATOL, EVAL_SSIM_ATOL = 1e-4, 1e-3, 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -512,8 +586,8 @@ def flagship_train(dev, smi: str, card: str) -> float:
     print(f"  every param tensor moved (least max |change| {p_moved:.3e}); every BatchNorm "
           f"statistic moved (least max |change| {s_moved:.3e})")
     check(p_moved > 0 and s_moved > 0, "params or BatchNorm statistics did not move")
-    # bf16 serving is refused (its integrator would be bf16); the trained
-    # weights serve under ``mixed``: bf16 convs, the f32 rollout kernel.
+    # The trained weights serve under ``mixed``: bf16 convs, the f32 rollout
+    # kernel (``bf16`` serving loops its bf16 integrator and launches none).
     mixed = ExperimentConfig(**{**FLAGSHIP, "precision": "mixed"})
     served = build_separable_network(mixed, dev, torch.Generator().manual_seed(0))
     served.load_state_dict(state.model.state_dict())
@@ -566,6 +640,14 @@ def write_idx_images(path: str, images: np.ndarray) -> None:
         f.write(struct.pack(">I", 2051))
         f.write(struct.pack(">III", *images.shape))
         f.write(images.tobytes())
+
+
+def write_idx_labels(path: str, labels: np.ndarray) -> None:
+    """A MNIST labels idx1 file (the tests' writer, ``tests/conftest.py``)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 2049))
+        f.write(struct.pack(">I", labels.shape[0]))
+        f.write(labels.tobytes())
 
 
 def flagship_argv(xp_dir: str, data_dir: str, epochs: int, steps: int, *extra) -> list:
@@ -867,22 +949,445 @@ def serve_checkpoint(dev, xp: str, trained_model, gen: DeviceMovingMNIST) -> dic
     return launches
 
 
-def train_entry_point(dev, bf16_ms: float) -> dict:
-    """Phase 8: the train entry point at full width, on the card."""
+def train_entry_point(dev, bf16_ms: float, work: str) -> tuple:
+    """Phase 8: the train entry point at full width, on the card, in the
+    working directory ``work``.  Returns the rollout launches of the
+    ``from_xp_dir`` request, the CLI's experiment directory and the data
+    directory."""
+    data_dir = os.path.join(work, "data")
+    os.makedirs(data_dir)
+    t = time.perf_counter()
+    digits = synthetic_digits(N_DIGITS)
+    write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"), digits)
+    print(f"phase 8: {N_DIGITS} synthetic digits written as idx in "
+          f"{time.perf_counter() - t:.1f} s")
+    gen = data_on_card(dev, digits)
+    state, xp = train_cli(dev, data_dir, work, bf16_ms)
+    device_sps = float(metrics_rows(xp)[-1]["samples_per_sec"])
+    resume_on_card(dev, data_dir, work)
+    host_path(dev, data_dir, work, device_sps)
+    return serve_checkpoint(dev, xp, state.model, gen), xp, data_dir
+
+
+# -- phase 9: evaluation -----------------------------------------------------
+
+def ssim_window_f64() -> np.ndarray:
+    """The reference's 11x11 window (sigma 1.5), a softmax over the grid, in f64."""
+    g = -(np.arange(11) - 5.0) ** 2 / (2.0 * 1.5 ** 2)
+    e = np.exp(g[None, :] + g[:, None])
+    return e / e.sum()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` with its mantissa rounded (to nearest) to TF32's 10 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def one_channel_blur(z: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, H - 10, W - 10): every channel filtered by the
+    11x11 ``win`` in one convolution of one channel (not depthwise)."""
+    n, c, h, w = z.shape
+    out = torch.nn.functional.conv2d(z.reshape(n * c, 1, h, w), win[None, None])
+    return out.reshape(n, c, h - 10, w - 10)
+
+
+def ssim_from_moments(x: torch.Tensor, y: torch.Tensor, blur) -> torch.Tensor:
+    """The SSIM map of NCHW batches with ``blur`` as the moment filter."""
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    mu1, mu2 = blur(x), blur(y)
+    s11 = blur(x * x) - mu1 ** 2
+    s22 = blur(y * y) - mu2 ** 2
+    s12 = blur(x * y) - mu1 * mu2
+    return ((2 * mu1 * mu2 + c1) * (2 * s12 + c2)) / ((mu1 ** 2 + mu2 ** 2 + c1) * (s11 + s22 + c2))
+
+
+def ssim_map_f64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The plain SSIM map of two (N, H, W, C) batches with every product and
+    sum in f64: the reference's formulas (softmax window, depthwise VALID
+    moments), written out apart from ``ops/ssim.py``."""
+    x = torch.from_numpy(np.asarray(a, np.float64)).permute(0, 3, 1, 2)
+    y = torch.from_numpy(np.asarray(b, np.float64)).permute(0, 3, 1, 2)
+    win = torch.from_numpy(ssim_window_f64())
+    return ssim_from_moments(x, y, lambda z: one_channel_blur(z, win)).permute(0, 2, 3, 1).numpy()
+
+
+def eval_frames(test_set, n: int, c: int, seed: int) -> tuple:
+    """(pred, gt) of ``n`` frames of 64x64xc: test-set frames as the ground
+    truth and a shifted, noisy copy as the prediction (sparse digits and
+    saturated strokes, the statistics an eval scores)."""
+    rng = np.random.default_rng(seed)
+    gt = np.concatenate([test_set[i][1] for i in range(-(-n // 10))])[:n]  # 10 frames each
+    gt = np.repeat(gt, c, axis=-1)
+    pred = np.clip(np.roll(gt, 2, axis=1) + 0.05 * rng.standard_normal(gt.shape), 0, 1)
+    return pred.astype(np.float32), gt
+
+
+def frame_means(m: np.ndarray) -> np.ndarray:
+    """Per-frame, per-channel means of (N, H, W, C) SSIM maps."""
+    return m.mean(axis=(1, 2))
+
+
+def ssim_on_card(dev, test_set) -> dict:
+    """Phase 9a: SSIM on the card with TF32 at torch's global default,
+    against the CPU in f32 and in f64."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    out = {}
+    try:
+        for c, n in ((1, SSIM_FRAMES), (3, SSIM_FRAMES // 4)):
+            pred, gt = eval_frames(test_set, n, c, seed=9 + c)
+            card = ssim_map(torch.from_numpy(pred).to(dev), torch.from_numpy(gt).to(dev))
+            card = card.cpu().numpy()
+            cpu = ssim_map(torch.from_numpy(pred), torch.from_numpy(gt)).numpy()
+            f64 = ssim_map_f64(pred, gt)
+            frame = frame_means
+            err = {"cpu_f32_f64": float(np.abs(cpu - f64).max()),
+                   "map_f32": float(np.abs(card - cpu).max()),
+                   "map_f64": float(np.abs(card - f64).max()),
+                   "frame_f64": float(np.abs(frame(card) - frame(f64)).max()),
+                   "max": float(card.max()), "frame_max": float(frame(card).max())}
+            # What the TF32 guard is for: the same moments (1) by a cuDNN
+            # convolution of one channel with TF32 allowed, and (2) from
+            # inputs and window rounded to TF32's 10-bit mantissa, as a TF32
+            # tensor core takes them, summed in f32.
+            x = torch.from_numpy(pred).to(dev).permute(0, 3, 1, 2)
+            y = torch.from_numpy(gt).to(dev).permute(0, 3, 1, 2)
+            win = torch.from_numpy(ssim_window_f64().astype(np.float32)).to(dev)
+            for label, rnd in (("cudnn_tf32", lambda z: z), ("tf32_inputs", tf32_round)):
+                m = ssim_from_moments(x, y, lambda z: one_channel_blur(rnd(z), rnd(win)))
+                m = m.permute(0, 2, 3, 1).cpu().numpy()
+                err[label] = (float(m.max()), float(np.abs(m - f64).max()),
+                              float(np.abs(frame(m) - frame(f64)).max()),
+                              float((m > 1).mean()))
+            out[c] = err
+            print(f"SSIM on the card, {n} frames of 64x64x{c}, cudnn.allow_tf32="
+                  f"{torch.backends.cudnn.allow_tf32} (the global default): max |card - CPU "
+                  f"f32| {err['map_f32']:.3e}, "
+                  f"|card - CPU f64| {err['map_f64']:.3e} (tolerance {SSIM_MAP_TOL:g}) on the "
+                  f"maps, {err['frame_f64']:.3e} (tolerance {SSIM_FRAME_TOL:g}) on per-frame "
+                  f"means; map max {err['max']:.7f}, per-frame max {err['frame_max']:.6f}; "
+                  f"the CPU's own f32 against f64: {err['cpu_f32_f64']:.3e} on the maps")
+            for label, what in (("cudnn_tf32", "by a one-channel cuDNN conv, TF32 allowed"),
+                                ("tf32_inputs", "from inputs rounded to TF32")):
+                top, d_map, d_frame, above = err[label]
+                print(f"  the same moments {what}: map max {top:.6f} ({above:.2e} of the "
+                      f"values above 1), max |that - CPU f64| {d_map:.3e} on the maps, "
+                      f"{d_frame:.3e} on per-frame means")
+            check(err["map_f64"] <= SSIM_MAP_TOL and err["map_f32"] <= SSIM_MAP_TOL
+                  and err["frame_f64"] <= SSIM_FRAME_TOL, f"SSIM on the card ({c} channels)")
+            check(err["max"] <= 1 + 1e-6 and err["frame_max"] <= 1, "SSIM above 1 on the card")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return out
+
+
+def eval_batch(dataset, b: int, n: int = EVAL_B) -> list:
+    """Items ``b*n .. b*n+n-1`` of a map-style dataset."""
+    return [dataset[i] for i in range(b * n, (b + 1) * n)]
+
+
+def evaluator_card_vs_cpu(dev, model, test_set) -> dict:
+    """Phase 9b: one B 16 nt_pred-10 batch scored by the Evaluator on the
+    card and on the CPU (the full-width seed-0 model, f32, TF32 off); the
+    kernel against its plain version at B 16 x 100 steps."""
+    items = eval_batch(test_set, 0)
+    cond, target = np.stack([c for c, _ in items]), np.stack([t for _, t in items])
+    nt_cond = cond.shape[1]
+    ev = Evaluator(model)
+    plan = rollout_plan(EVAL_B, *model.t_resnet.flat_params()[0].shape, 1)
+    reset_launch_counts()
+    card, _, _ = ev.score(cond, target, nt_skip=nt_cond)
+    torch.cuda.synchronize()
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    cpu, _, _ = Evaluator(copy.deepcopy(model).cpu()).score(cond, target, nt_skip=nt_cond)
+    print(f"Evaluator.score, card against CPU (f32, TF32 off, full width, seed 0, B {EVAL_B}, "
+          f"nt_pred {target.shape[1]}): rollout plan {plan} ({plan.grid // plan.cluster} "
+          f"clusters); rollout kernel launches {launches}")
+    check(launches == {"cluster": 1, "stream": 0}, "one cluster launch for a B16 score")
+    check((plan.variant, plan.cluster, plan.grid // plan.cluster) == ("cluster", 8, 2),
+          "the B16 plan is not the cluster kernel at C 8 with 2 clusters")
+    errs = {"mse": float(np.max(np.abs(card["mse"] - cpu["mse"]) / cpu["mse"])),
+            "psnr": float(np.abs(card["psnr"] - cpu["psnr"]).max()),
+            "ssim": float(np.abs(card["ssim"] - cpu["ssim"]).max())}
+    tols = {"mse": EVAL_MSE_RTOL, "psnr": EVAL_PSNR_ATOL, "ssim": EVAL_SSIM_ATOL}
+    for k in errs:
+        print(f"  {k}: card mean {card[k].mean():.6f}, CPU mean {cpu[k].mean():.6f}, worst "
+              f"per-sequence difference {errs[k]:.3e} ({'relative' if k == 'mse' else 'absolute'};"
+              f" tolerance {tols[k]:g})")
+        check(bool(np.isfinite(card[k]).all()) and errs[k] <= tols[k], f"Evaluator {k}")
+    with torch.inference_mode():
+        t0 = model.encode_t(torch.from_numpy(cond).to(dev)).contiguous()
+    params = model.t_resnet.flat_params()
+    out = mlp_resnet_rollout(t0, params, N_FORECAST)
+    ref = mlp_resnet_rollout_reference(t0, params, N_FORECAST)
+    rel = step_rel_err(out, ref)
+    print(f"  cluster kernel vs plain at B {EVAL_B} x {N_FORECAST} steps: worst step-relative "
+          f"error {rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs "
+          f"{float((out - ref).abs().max()):.3e} at max |t| {float(ref.abs().max()):.3e}")
+    check(rel <= ROLLOUT_REL_TOL, "cluster kernel disagrees with plain at B16")
+    return {"launches": launches["cluster"], "plan": plan, "rel": rel,
+            "abs": float((out - ref).abs().max()), "t0": t0, "params": params}
+
+
+def eval_clis(xp: str, data_dir: str) -> dict:
+    """Phase 9c, the bf16 checkpoint: both protocols through their CLIs,
+    in-process, on the card.  Returns {protocol: (sequences, wall s)}."""
+    runs = {}
+    with open(os.path.join(xp, "params.json")) as f:
+        precision = json.load(f)["precision"]
+    for key, cli, flags in (
+            ("mnist_t10", cli_test_mnist, ["--nt_pred", "10"]),
+            ("mnist_swap_t10", cli_test_swap, ["--nt_pred", "10"]),
+            ("mnist_t95", cli_test_mnist, ["--nt_pred", "95", "--max_batches",
+                                           str(T95_MAX_BATCHES)])):
+        argv = ["--xp_dir", xp, "--data_dir", data_dir, *flags,
+                "--archive_cap", str(ARCHIVE_CAP)]
+        print(f"eval CLI ({precision} checkpoint of phase 8b): python -m "
+              f"{cli.__name__} " + " ".join(argv))
+        reset_launch_counts()
+        t = time.perf_counter()
+        means = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(mlp_resnet_rollout.variant_launches)
+        record = json.load(open(os.path.join(xp, "evals.json")))[key]
+        n_seq = EVAL_B * T95_MAX_BATCHES if key == "mnist_t95" else N_TEST_DIGITS // 2
+        runs[key] = (n_seq, wall)
+        print(f"  {n_seq} sequences in {wall:.1f} s ({n_seq / wall:.1f} sequences/s, load "
+              f"included); means {means}; rollout launches {launches}; evals.json "
+              f"max_batches {record.get('max_batches')}")
+        check(all(np.isfinite(v) for v in means.values()), f"{key}: non-finite means")
+        check(0 < means["ssim"] <= 1, f"{key}: SSIM outside (0, 1]")
+        check(launches == {"cluster": 0, "stream": 0},
+              f"{key}: the {precision} path launched the rollout kernel")
+        check(record["mse"] == means["mse"] and record.get("max_batches") == (
+            T95_MAX_BATCHES if key == "mnist_t95" else None), f"{key}: evals.json record")
+    return runs
+
+
+def eval_f32_bundle(model, cfg, data_dir: str, work: str) -> dict:
+    """Phase 9c, the f32 bundle: the same protocols through
+    ``evaluate(model_bundle=...)`` on the full-width seed-0 model; one
+    cluster launch for every kernel-bearing call."""
+    xp = os.path.join(work, "eval_f32")
+    os.makedirs(xp)
+    launches = {}
+    for key, evaluate, nt_pred in (("mnist_t10", eval_mnist.evaluate, 10),
+                                   ("mnist_swap_t10", eval_swap.evaluate, 10),
+                                   ("mnist_t95", eval_mnist.evaluate, 95)):
+        n_batches = BUNDLE_MAX_BATCHES[key]
+        # score (or score_swap) once a batch; the Moving MNIST protocol also
+        # forecasts the content swap of every archived batch
+        archived = -(-BUNDLE_ARCHIVE_CAP // EVAL_B) if evaluate is eval_mnist.evaluate else 0
+        reset_launch_counts()
+        t = time.perf_counter()
+        means = evaluate(xp, data_dir, nt_pred, max_batches=n_batches, model_bundle=(model, cfg),
+                         archive_cap=BUNDLE_ARCHIVE_CAP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[key] = dict(mlp_resnet_rollout.variant_launches)
+        print(f"evaluate(model_bundle=f32 seed-0 model) {key}, {n_batches} batches of "
+              f"{EVAL_B}: {wall:.1f} s; means {means}; rollout launches {launches[key]} "
+              f"(kernel-bearing calls: {n_batches} scores + {archived} swap forecasts)")
+        check(all(np.isfinite(v) for v in means.values()) and 0 < means["ssim"] <= 1,
+              f"f32 {key} means")
+        check(launches[key] == {"cluster": n_batches + archived, "stream": 0},
+              f"f32 {key}: one cluster launch a kernel-bearing call")
+    return launches
+
+
+def eval_resume(dev, xp: str, data_dir: str) -> None:
+    """Phase 9d: the Moving MNIST eval of the bf16 checkpoint killed after
+    batch 2 and resumed, against the uninterrupted run, under
+    cudnn.deterministic."""
+    torch.backends.cudnn.deterministic = True
+    kw = dict(nt_pred=10, max_batches=RESUME_BATCHES, save_arrays=False, device=dev)
+    try:
+        full = eval_mnist.evaluate(xp, data_dir, **kw)
+        real_add = eval_common.EvalProgress.add
+
+        def dying_add(self, b, rows):
+            real_add(self, b, rows)
+            if b + 1 == RESUME_KILL_AFTER:
+                raise RuntimeError("killed after batch 2")
+
+        eval_common.EvalProgress.add = dying_add
+        try:
+            eval_mnist.evaluate(xp, data_dir, **kw)
+            check(False, "the killed eval did not stop")
+        except RuntimeError as e:
+            check("killed" in str(e), f"the killed eval failed otherwise: {e}")
+        finally:
+            eval_common.EvalProgress.add = real_add
+        check(os.path.exists(os.path.join(xp, "mnist_t10.progress.npz")), "no progress file")
+        resumed = eval_mnist.evaluate(xp, data_dir, resume=True, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"eval resume on the card (cudnn.deterministic, {RESUME_BATCHES} batches, killed "
+          f"after batch {RESUME_KILL_AFTER}): uninterrupted {full}, resumed {resumed}; bitwise "
+          f"equal: {resumed == full}")
+    check(resumed == full, "the resumed eval differs from the uninterrupted one")
+
+
+def profile_busy(fn, n: int) -> tuple:
+    """(wall ms, device busy ms) a call of ``fn``, from a torch.profiler
+    trace of ``n`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / n
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    return wall_ms, busy
+
+
+def eval_timing(dev, smi: str, models: dict, data_dir: str, runs: dict) -> None:
+    """Phase 9e: per protocol, the host's ms a batch (items and stacking),
+    the device's ms a batch by CUDA events (forecast, metrics, SSIM alone),
+    the loop's sequences/s and the device's idle share under the profiler."""
+    print(f"eval timing on {smi}, B {EVAL_B} (TF32 off)")
+    images, _ = load_mnist(data_dir, train=False)
+    sets = {nt: MovingMNIST.make_dataset(data_dir, 64, 5, 5 + nt, 4, True, 2, train=False)
+            for nt in (10, 95)}
+    swap_set = SwapDataset(data_dir, 15, 5, 2, np.random.RandomState(1), images=images)
+    for key, nt in (("mnist_t10", 10), ("mnist_swap_t10", 10), ("mnist_t95", 95)):
+        swap = key.startswith("mnist_swap")
+
+        def host_batch(b, nt=nt, swap=swap):
+            items = eval_batch(sets[nt], b)
+            cond = np.stack([c for c, _ in items])
+            target = np.stack([t for _, t in items])
+            if not swap:
+                return cond, target
+            sw = eval_batch(swap_set, b)
+            return (np.stack([it[0] for it in sw]), cond,
+                    np.stack([it[3] for it in sw]))
+
+        t = time.perf_counter()
+        batches = [host_batch(b) for b in range(EVAL_TIMING_BATCHES)]
+        host_ms = (time.perf_counter() - t) / EVAL_TIMING_BATCHES * 1e3
+        for name, model in models.items():
+            ev = Evaluator(model)
+            x = [torch.from_numpy(a).to(dev) for a in batches[0]]
+            with torch.inference_mode():
+                s = ev.model.encode_s(x[0]) if swap else None
+                window = x[1] if swap else x[0]
+
+                def forecast(window=window, s=s, ev=ev):
+                    return ev.model.get_forecast(window, 5 + nt, init_s_code=s)[0]
+
+                pred, gt = forecast()[:, 5:], x[-1]
+                if swap:  # every permutation against the one prediction
+                    n_perms = gt.shape[1]
+                    pred = pred.unsqueeze(1).expand(-1, n_perms, -1, -1, -1, -1).flatten(0, 1)
+                    gt = gt.flatten(0, 1)
+                fc_ms = cuda_ms(forecast, reps=5, inner=2)
+                met_ms = cuda_ms(lambda: per_sequence_metrics(pred, gt), reps=5, inner=2)
+                ssim_ms = cuda_ms(lambda: ssim_per_frame(pred, gt), reps=5, inner=2)
+            batch_ids = itertools.cycle(range(EVAL_TIMING_BATCHES))
+
+            def loop(ev=ev, swap=swap):
+                b = host_batch(next(batch_ids))
+                return ev.score_swap(*b, nt_skip=5) if swap else ev.score(*b, nt_skip=5)
+
+            loop()
+            wall_ms, busy_ms = profile_busy(loop, EVAL_TIMING_BATCHES)
+            print(f"  {key} [{name}]: host {host_ms:.2f} ms a batch (items and stacking); "
+                  f"device {fc_ms:.3f} ms forecast, {met_ms:.3f} ms metrics of which SSIM "
+                  f"{ssim_ms:.3f} ms (CUDA events); the loop (host batch + score) "
+                  f"{wall_ms:.2f} ms a batch = {EVAL_B / wall_ms * 1e3:.1f} sequences/s, "
+                  f"device busy {busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%} (profiler)")
+        if key in runs:
+            n_seq, wall = runs[key]
+            print(f"  {key}: the CLI scored {n_seq} sequences at {n_seq / wall:.1f} "
+                  f"sequences/s, test-set load included (phase 9c)")
+
+
+def evaluation(dev, smi: str, model, cfg, xp: str, data_dir: str, work: str) -> dict:
+    """Phase 9: the Moving MNIST evaluation on the card.  ``model``/``cfg``:
+    the full-width seed-0 f32 model; ``xp``: the bf16 checkpoint of phase
+    8b; ``data_dir`` gains MNIST-sized synthetic test digits and the test
+    set.  Returns the eval launches of the kernel and its B 16 figures."""
+    t = time.perf_counter()
+    digits = synthetic_digits(N_TEST_DIGITS, seed=1)
+    write_idx_images(os.path.join(data_dir, "t10k-images-idx3-ubyte"), digits)
+    write_idx_labels(os.path.join(data_dir, "t10k-labels-idx1-ubyte"),
+                     (np.arange(N_TEST_DIGITS) % 10).astype(np.uint8))
+    path = make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
+    print(f"phase 9: {N_TEST_DIGITS} synthetic test digits and the test set "
+          f"({N_TEST_DIGITS // 2} sequences x {TEST_SEQ_LEN} frames, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB compressed) in {time.perf_counter() - t:.1f} s")
+    test_set = MovingMNIST.make_dataset(data_dir, 64, cfg.nt_cond, cfg.nt_cond + 10, 4, True,
+                                        cfg.n_object, train=False)
+    check(len(test_set) == N_TEST_DIGITS // 2, "test-set size")
+    ssim = ssim_on_card(dev, test_set)
+    b16 = evaluator_card_vs_cpu(dev, model, test_set)
+    del test_set
+    runs = eval_clis(xp, data_dir)
+    bundle = eval_f32_bundle(model, cfg, data_dir, work)
+    eval_resume(dev, xp, data_dir)
+    bf16_model, _ = load_for_eval(xp, device=dev)
+    eval_timing(dev, smi, {"bf16 checkpoint": bf16_model, "f32 seed 0": model}, data_dir, runs)
+    return {"b16": b16, "bundle": bundle, "ssim": ssim}
+
+
+def phase9_only(dev=None) -> None:
+    """Phase 9 alone, a quicker run on the card than the whole script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase9_only()"
+
+    It trains the flagship through the train CLI for 1 epoch of 5 steps (a
+    bf16 checkpoint, in place of phase 8b's 40 steps), then runs phase 9."""
+    dev = torch.device("cuda:0") if dev is None else dev
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi()
+    print(f"nvidia-smi: {smi}")
+    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
     with tempfile.TemporaryDirectory() as work:
         data_dir = os.path.join(work, "data")
         os.makedirs(data_dir)
-        t = time.perf_counter()
-        digits = synthetic_digits(N_DIGITS)
-        write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"), digits)
-        print(f"phase 8: {N_DIGITS} synthetic digits written as idx in "
-              f"{time.perf_counter() - t:.1f} s")
-        gen = data_on_card(dev, digits)
-        state, xp = train_cli(dev, data_dir, work, bf16_ms)
-        device_sps = float(metrics_rows(xp)[-1]["samples_per_sec"])
-        resume_on_card(dev, data_dir, work)
-        host_path(dev, data_dir, work, device_sps)
-        return serve_checkpoint(dev, xp, state.model, gen)
+        write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"),
+                         synthetic_digits(N_DIGITS))
+        xp = os.path.join(work, "cli")
+        cli_main.main(flagship_argv(xp, data_dir, 1, 5))
+        evaluation(dev, smi, model, cfg, xp, data_dir, work)
+
+
+def eval_kernel_timing(t0, params, flops_peak: float, bw_peak: float) -> dict:
+    """Both kernels at the t10 eval's rollout shapes (B 16, 15 steps), in
+    turns, beside the plain loop and the bound; keys for the kernels line."""
+    n = EVAL_ROLLOUT_STEPS
+    batch, code = t0.shape
+    hidden = params[0].shape[1]
+    plans = {"cluster": rollout_plan(batch, code, hidden, 1),
+             "stream": rollout_plan(batch, code, hidden, 1, variant="stream")}
+    runs = {v: [] for v in plans}
+    for v in ("stream", "cluster", "cluster", "stream"):
+        runs[v].append(cuda_ms(lambda: mlp_resnet_rollout(t0, params, n, plan=plans[v])))
+    plain = cuda_ms(lambda: mlp_resnet_rollout_reference(t0, params, n))
+    ops, nbytes = rollout_cost(batch, code, hidden, 1, n)
+    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    bound = max(t_ops, t_bytes)
+    out = {}
+    for v, plan in plans.items():
+        out[v] = {"eval_shapes": f"B {batch}, code {code}, H {hidden}, 1 block, {n} steps",
+                  "eval_plan": plan._asdict(), "eval_ms": float(np.mean(runs[v])),
+                  "eval_plain_ms": plain, "eval_bound_ms": bound,
+                  "eval_bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"  {v} kernel at the t10 eval's rollout (B {batch} x {n} steps) {plan}: "
+              f"{out[v]['eval_ms']:.4f} ms ({runs[v][0]:.4f}, {runs[v][1]:.4f}); plain loop "
+              f"{plain:.4f} ms; bound {bound:.5f} ms by {out[v]['eval_bound_by']} "
+              f"({bound / out[v]['eval_ms']:.1%})")
+    return out
 
 
 def main() -> None:
@@ -1089,21 +1594,32 @@ def main() -> None:
     # -- 7. the flagship train step ------------------------------------------
     bf16_ms = flagship_train(dev, smi, card)
 
-    # -- 8. the train entry point --------------------------------------------
-    served = train_entry_point(dev, bf16_ms)
-    print(f"rollout kernel launches on the from_xp_dir request: {served}")
+    # -- 8. the train entry point, and 9. evaluation, in one working dir ------
+    with tempfile.TemporaryDirectory() as work:
+        served, xp, data_dir = train_entry_point(dev, bf16_ms, work)
+        print(f"rollout kernel launches on the from_xp_dir request: {served}")
+        evals = evaluation(dev, smi, model, cfg, xp, data_dir, work)
+    b16 = evals["b16"]
+    eval_ms = eval_kernel_timing(b16["t0"], b16["params"], flops_peak, bw_peak)
 
     sources = {"cluster": "mlp_resnet_rollout_cluster.cu", "stream": "mlp_resnet_rollout.cu"}
     paths = {"cluster": ("serving, 1-block integrator", launches["cluster"]),
              "stream": ("serving, 4-block integrator", launches4["stream"])}
     serving = "serving B64 code20 H512 1 block 100 steps"
+    eval_launches = {v: {"Evaluator.score, f32 seed 0, B 16 (9b)":
+                         b16["launches"] if v == "cluster" else 0,
+                         **{f"{k} evaluate(model_bundle=f32 seed 0) (9c)": n[v]
+                            for k, n in evals["bundle"].items()},
+                         "eval CLIs on the bf16 checkpoint (9c)": 0}
+                     for v in ("cluster", "stream")}
     print(json.dumps({"kernels": [{
         "name": f"mlp_resnet_rollout[{v}]",
         "route": "cuda",
         "source": f"spatiotemporal_variable_separation_tpu_torch/csrc/{sources[v]}",
         "replaces": "spatiotemporal_variable_separation_tpu/ops/pallas/rollout.py:91",
         "launches": paths[v][1],
-        "launches_path": paths[v][0],
+        "launches_path": paths[v][0] + "; the eval paths in launches_eval",
+        "launches_eval": eval_launches[v],
         "max_abs_err": errors[serving, v][1],
         "max_step_rel_err": errors[serving, v][0],
         "ms": ms[v],
@@ -1114,6 +1630,7 @@ def main() -> None:
         "addmm_loop_ms": addmm_ms,
         "shapes": "B 64, code 20, H 512, 1 block, 100 steps",
         "plan": plans[v]._asdict(),
+        **eval_ms[v],
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

@@ -6,7 +6,12 @@ Torch-only reference flags keep their meaning or map: ``--torch_amp`` and
 ``--apex_amp`` map to ``--precision bf16``, as in the JAX package;
 ``--device N`` picks the card ``cuda:N``; ``--num_workers`` sets the host
 pipeline's threads.  The port trains on one device: ``--num_devices`` or
-``--model_parallel`` above 1 raise."""
+``--model_parallel`` above 1 raise.
+
+The eval and serving CLIs share the helpers at the bottom (``--platform``,
+``--devices``, ``--max_batches``, ``--bn_reestimate``, ``--resume``,
+``--save_arrays``/``--archive_cap``), as in the JAX package; ``--devices``
+above 1 raises."""
 
 from __future__ import annotations
 
@@ -178,9 +183,63 @@ def add_platform_arg(parser) -> None:
                              "small size; the card is the default).")
 
 
+def add_devices_arg(parser) -> None:
+    """The eval and serving CLIs' --devices flag; more than one raises."""
+    parser.add_argument("--devices", type=int, metavar="N", default=None,
+                        help="Devices to shard the eval rollout over; the port "
+                             "evaluates on one so far (more raises).")
+
+
+def add_max_batches_arg(parser) -> None:
+    """The eval CLIs' --max_batches flag (subsampled scoring)."""
+    parser.add_argument(
+        "--max_batches", type=int, metavar="N", default=None,
+        help="Score only the first N eval batches (a subsampled score, not the "
+             "protocol's). The evals.json record then carries max_batches=N. "
+             "Default: the full test set.")
+
+
+def add_bn_reestimate_arg(parser) -> None:
+    """The eval CLIs' --bn_reestimate flag (BatchNorm recalibration)."""
+    parser.add_argument(
+        "--bn_reestimate", type=int, metavar="N", default=0,
+        help="Before scoring, refresh the BatchNorm running statistics from N "
+             "random conditioning batches run in train mode. 0 (default): the "
+             "reference's protocol, statistics as trained.")
+
+
+def add_eval_resume_arg(parser) -> None:
+    """The eval CLIs' --resume flag (batch-level resume)."""
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="Continue a killed run from its per-batch progress file instead "
+             "of scoring from the start; a completed run leaves no progress "
+             "file, so --resume on a fresh protocol changes nothing.")
+
+
+def add_archive_args(parser, default_save: int = 1) -> None:
+    """The archive controls of the eval CLIs that write npz frame archives."""
+    parser.add_argument(
+        "--save_arrays", type=int, choices=(0, 1), default=default_save,
+        metavar="{0,1}",
+        help="Write the npz frame archives (predictions/gt/cond/swaps); the "
+             "one large device-to-host fetch of the protocol. "
+             f"Default: {default_save}.")
+    parser.add_argument(
+        "--archive_cap", type=int, metavar="N", default=0,
+        help="Archive only the first N sequences (0 = all, the reference's "
+             "behaviour). The 5,000-sequence 95-frame MNIST protocol archives "
+             "~12 GB uncapped; metrics always cover every sequence.")
+
+
 def device_from_args(args) -> str | None:
     """The device the flags ask for: ``cpu`` under ``--platform cpu``,
-    ``cuda:N`` under ``--device N``, else None (the card, or raise)."""
+    ``cuda:N`` under ``--device N``, else None (the card, or raise).
+    ``--devices`` above 1 raises: the port runs on one device."""
+    if (getattr(args, "devices", None) or 1) > 1:
+        raise NotImplementedError(
+            f"--devices {args.devices}: the port evaluates and serves on one device; "
+            "more come with ROADMAP.md Queue 1, slice 9 (parallelism)")
     if getattr(args, "platform", None) == "cpu":
         return "cpu"
     if getattr(args, "device", None) is not None:

@@ -1,0 +1,5 @@
+"""Evaluation protocols: the shared ``Evaluator`` and its host-side helpers
+(``common``), Moving MNIST (``mnist``) and its content-swap protocol
+(``mnist_swap``)."""
+
+from spatiotemporal_variable_separation_tpu_torch.eval.common import Evaluator  # noqa: F401

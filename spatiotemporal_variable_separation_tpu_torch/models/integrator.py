@@ -3,8 +3,8 @@ learned ODE for the dynamic code T (torch counterpart of the JAX package's
 ``models/integrator.py:25-43``; reference ``var_sep/networks/resnet.py:22-50``).
 
 The module computes in ``dtype`` (f32 under the ``f32`` and ``mixed``
-policies, bf16 under ``bf16``).  Training differentiates through a loop of
-its calls (``SeparableNetwork._integrate``); the eval rollout hands
+policies, bf16 under ``bf16``).  Training, and the bf16 eval rollout, loop
+its calls (``SeparableNetwork._integrate``); the f32 eval rollout hands
 ``flat_params`` to the rollout kernel instead.
 """
 

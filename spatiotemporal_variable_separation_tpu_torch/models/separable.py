@@ -4,12 +4,14 @@ Torch counterpart of the JAX package's ``models/separable.py`` (reference
 ``var_sep/networks/model.py:20-89``, ``train.py:38-149``):
 
 * S (and its skip maps) and T are encoded once from the conditioning window;
-* in eval mode T is rolled forward by ``ops.rollout.mlp_resnet_rollout`` --
-  a hand-written kernel on the card (the one ``rollout_plan`` picks from the
-  shapes), the plain loop on the CPU -- where the JAX package scans its
-  integrator module.  The kernel is forward-only, as the Pallas one is, so in
-  train mode the integrator module is looped under autograd and returns its
-  per-block residuals;
+* in eval mode an f32 integrator (``f32``, ``mixed``) rolls T forward by
+  ``ops.rollout.mlp_resnet_rollout`` -- a hand-written kernel on the card
+  (the one ``rollout_plan`` picks from the shapes), the plain loop on the
+  CPU -- where the JAX package scans its integrator module; a bf16
+  integrator (``bf16``) is looped as a module, as the JAX package scans it.
+  The kernel is forward-only, as the Pallas one is, so in train mode the
+  integrator module is looped under autograd and returns its per-block
+  residuals;
 * eval decodes every (S, T_t) pair in one batched fold with BatchNorm frozen,
   auto-chunked along the horizon by ``eval_decode_tile_elems``.  Train mode
   decodes ``stepwise`` (one decoder call, hence one BatchNorm update, per
@@ -107,9 +109,20 @@ class SeparableNetwork(nn.Module):
         # Under ``mixed`` the integrator is f32 while the encoder emits bf16.
         t_code = t_code.to(self.t_resnet.dtype)
         if not self.training:
-            t_codes = mlp_resnet_rollout(t_code.contiguous(), self.t_resnet.flat_params(),
-                                         n_forecast)
-            return t_codes, None
+            # The integrator's dtype alone picks the path; a failure picks
+            # nothing (a failed kernel launch raises).  An f32 integrator
+            # (``f32``, ``mixed``) runs the rollout kernel.  A bf16 one
+            # (``bf16``) loops the module, as the JAX package scans it: the
+            # Pallas kernel is f32-only and the JAX package never calls it.
+            if self.t_resnet.dtype == torch.float32:
+                t_codes = mlp_resnet_rollout(t_code.contiguous(),
+                                             self.t_resnet.flat_params(), n_forecast)
+                return t_codes, None
+            t_codes = [t_code]
+            with torch.no_grad():
+                for _ in range(n_forecast - 1):
+                    t_codes.append(self.t_resnet(t_codes[-1])[0])
+            return torch.stack(t_codes), None
         t_codes, residuals = [t_code], []
         for _ in range(n_forecast - 1):
             t, res = self._remat(self.t_resnet, t_codes[-1])

@@ -14,13 +14,14 @@ one model in eval mode on one device and answers requests of up to
   calls on the same input may differ in the last bits (measured on an H100
   80GB HBM3 at 700 W, B 64 x 100 frames: max 6.3e-3, mean 1.4e-8, with
   deterministic algorithms 123 ms a call instead of 88 ms);
-* the T rollout runs in a hand-written CUDA kernel (``ops/rollout.py``
+* an f32 T rollout runs in a hand-written CUDA kernel (``ops/rollout.py``
   picks it from the shapes), the encoders and decoder in PyTorch;
-* precision ``f32`` or ``mixed``: under ``mixed`` the encoders and decoder
-  compute in bf16 and the T code is cast to f32 for the same rollout
-  kernel, as the JAX package's ``mixed`` integrator runs in f32.  ``bf16``
-  is refused: the JAX package rolls T with a bf16 integrator there, and the
-  kernels take f32, so they would compute something else;
+* precision ``f32``, ``mixed`` or ``bf16``: under ``mixed`` the encoders
+  and decoder compute in bf16 and the T code is cast to f32 for the same
+  rollout kernel, as the JAX package's ``mixed`` integrator runs in f32.
+  Under ``bf16`` the integrator is bf16 too, and its module is looped, as
+  the JAX package scans it; that path launches no rollout kernel (the
+  kernels, like the Pallas one, are f32-only);
 * the device is the card unless the caller asks for the CPU: with no card
   present, constructing a Forecaster without ``device="cpu"`` raises.
 
@@ -52,11 +53,6 @@ class Forecaster:
 
     def __init__(self, model: torch.nn.Module, cfg, batch_size: int, n_forecast: int,
                  device=None):
-        if cfg.precision == "bf16":
-            raise NotImplementedError(
-                "bf16 serving rolls T with a bf16 integrator in the JAX package; the "
-                "port's rollout kernels take f32.  It waits for a bf16 rollout "
-                "(ROADMAP.md Queue 1, slice 6); serve with precision 'mixed' or 'f32'")
         device = resolve_device(device, "Forecaster")
         self.cfg = cfg
         self.batch_size = batch_size
@@ -85,8 +81,8 @@ class Forecaster:
 
         ``precision`` overrides the training precision for serving only, as
         in the JAX package (parameters are f32 under every policy): a
-        ``bf16``-trained checkpoint is refused unless served under ``mixed``
-        or ``f32``.  The JAX package's experiment directories hold Orbax
+        ``bf16``-trained checkpoint serves in ``bf16`` by default, or under
+        ``mixed`` or ``f32``.  The JAX package's experiment directories hold Orbax
         checkpoints, which the port cannot read; carry those across with
         ``from_flax_variables``."""
         from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval

@@ -177,12 +177,15 @@ def test_from_xp_dir_serves_the_checkpoint(tmp_path, monkeypatch):
 
 
 def test_from_xp_dir_precision_override(tmp_path):
-    """A bf16-trained checkpoint keeps the bf16 serving refusal unless served
-    under ``mixed`` (bf16 convolutions, the f32 rollout)."""
+    """A bf16-trained checkpoint serves in bf16 (its integrator module
+    looped in bf16), or under ``mixed`` (bf16 convolutions, the f32
+    rollout) when asked."""
     cfg, state = _trained(tmp_path, precision="bf16")
     ckpt.save_checkpoint(str(tmp_path), state, name="final")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Forecaster.from_xp_dir(str(tmp_path), 2, 4, device="cpu")
+    bf16 = Forecaster.from_xp_dir(str(tmp_path), 2, 4, device="cpu")
+    assert bf16.cfg.precision == "bf16" and bf16.model.t_resnet.dtype == torch.bfloat16
+    out = bf16.predict(np.zeros((2, 3, 64, 64, 1), np.float32))
+    assert out.shape == (2, 4, 64, 64, 1) and np.isfinite(out).all()
     fc = Forecaster.from_xp_dir(str(tmp_path), 2, 4, precision="mixed", device="cpu")
     assert fc.cfg.precision == "mixed" and fc.model.t_resnet.dtype == torch.float32
     out = fc.predict(np.zeros((2, 3, 64, 64, 1), np.float32))

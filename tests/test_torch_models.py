@@ -176,13 +176,21 @@ def test_factory_precision_policies(precision, compute, integrator):
     assert model.t_resnet.dtype == integrator
 
 
-def test_bf16_serving_is_refused():
-    """``bf16`` rolls T with a bf16 integrator in the JAX package; the port's
-    rollout kernels take f32, so it does not serve bf16."""
+def test_bf16_serving_is_refused(monkeypatch):
+    """The refusal is lifted: ``bf16`` rolls T with its bf16 integrator
+    module, as the JAX package scans it, and never reaches the f32-only
+    rollout kernel (``tests/test_torch_eval.py`` holds it against JAX)."""
+    from spatiotemporal_variable_separation_tpu_torch.models import separable
+
+    calls = []
+    monkeypatch.setattr(separable, "mlp_resnet_rollout",
+                        lambda *a, **k: calls.append(1))
     cfg = ExperimentConfig(**{**SMALL, "precision": "bf16"})
     model = build_separable_network(cfg, torch.device("cpu"), GEN)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Forecaster(model, cfg, 2, 3, device="cpu")
+    out = Forecaster(model, cfg, 2, 3, device="cpu").predict(
+        np.random.default_rng(0).random((2, 5, 64, 64, 1), dtype=np.float32))
+    assert out.shape == (2, 3, 64, 64, 1) and np.isfinite(out).all()
+    assert calls == []
 
 
 @pytest.mark.parametrize("overrides,match", [
