@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: builds its kernels, holds each
 against its plain PyTorch version on the card, serves the full-width
 Moving-MNIST DCGAN forecaster through them, trains it at the flagship
-config of ``bench.py`` and scores it with both Moving MNIST protocols.
+config of ``bench.py`` and scores it with both Moving MNIST protocols; then
+generates WaveEq on the card, trains both WaveEq recipes and scores them.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -107,11 +108,37 @@ result line is printed):
       scoring loop's sequences/s and the device's idle share under the
       profiler, for the bf16 checkpoint and the f32 model; both kernels at
       the t10 eval's rollout shapes (B 16 x 15 steps).
+10. WaveEq and WaveEq-100 (the recipes of ``tests/test_recipes.py:28-36``,
+    full width), in a temporary directory:
+    a. ``simulate_wave`` on the card, 4 sequences x 300 steps of 64x64, both
+       tableaus, against the port on the CPU and against an f64 numpy RK4,
+       the error relative to each frame's max;
+    b. ``generate_dataset`` on the card at the canonical size (300 sequences
+       x 300 frames, seed 42, ~1.5 GB of npz) and ``generate_pixels``: the
+       seconds, and the f0/c draws byte-equal to a host ``RandomState(42)``;
+    c. ``DeviceWaveEq`` over the train split on the card: a B 128 batch of
+       the same draws gathered on the card and on the CPU, bitwise; ms a
+       batch and the corpus's MB on the card;
+    d. the train CLI on both recipes in bf16, 2 epochs x 20 steps: a finite
+       loss that falls, 0 rollout launches, samples/s an epoch, the fused
+       step's ms/step and a profiler trace (busy ms, idle share); a ``wave``
+       run stopped by SIGTERM after step 8 and resumed, bitwise equal to the
+       uninterrupted run;
+    e. ``cli.test_wave`` on both bf16 checkpoints over the whole test split
+       (60 sequences x 106 windows, B 256): finite ``mse_t40``, the
+       ``evals.json`` record, 0 launches;
+    f. ``eval.wave.evaluate(model_bundle=...)`` on the f32 seed-0 WaveEq
+       model: one streaming launch a batch and no cluster launch (no cluster
+       holds 3 blocks at H 512); per-sequence MSE of the first 4 batches,
+       card against CPU; the streaming kernel against plain at B 256 x 45
+       steps x 3 blocks, timed in turns with the plain and ``addmm`` loops,
+       beside the bound.
 
 The line before the last is a JSON object with one entry per kernel (its
-serving-path launches, and its launches on each eval path in
-``launches_eval``, with its B 16 plan and times); the last is
-``{"ok": true, "device": {...}}``.
+serving-path launches, its launches on each eval path in ``launches_eval``
+and on the WaveEq paths in ``launches_wave``, with its B 16 plan and times,
+and the streaming kernel's ``wave_*`` times at the WaveEq shape); the last
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -140,7 +167,9 @@ from spatiotemporal_variable_separation_tpu_torch.cli import test_mnist as cli_t
 from spatiotemporal_variable_separation_tpu_torch.cli import (
     test_mnist_disentanglement as cli_test_swap,
 )
+from spatiotemporal_variable_separation_tpu_torch.cli import test_wave as cli_test_wave
 from spatiotemporal_variable_separation_tpu_torch.cli.options import build_parser, config_from_args
+from spatiotemporal_variable_separation_tpu_torch.data import registry, wave_eq
 from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
     DeviceMovingMNIST,
     stochastic_positions,
@@ -152,9 +181,11 @@ from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import (
     make_test_set,
     synthetic_digits,
 )
+from spatiotemporal_variable_separation_tpu_torch.data.wave_device import DeviceWaveEq
 from spatiotemporal_variable_separation_tpu_torch.eval import common as eval_common
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist as eval_mnist
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist_swap as eval_swap
+from spatiotemporal_variable_separation_tpu_torch.eval import wave as eval_wave
 from spatiotemporal_variable_separation_tpu_torch.eval.common import (
     Evaluator,
     per_sequence_metrics,
@@ -164,7 +195,9 @@ from spatiotemporal_variable_separation_tpu_torch.models.factory import build_se
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
 from spatiotemporal_variable_separation_tpu_torch.ops import _build
 from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
+    SMEM_LIMIT,
     cluster_library,
+    cluster_smem_bytes,
     mlp_resnet_rollout,
     mlp_resnet_rollout_reference,
     rollout_plan,
@@ -180,6 +213,7 @@ from spatiotemporal_variable_separation_tpu_torch.train import (
     make_train_step,
 )
 from spatiotemporal_variable_separation_tpu_torch.train.loop import run_training
+from spatiotemporal_variable_separation_tpu_torch.train.step import DATA_SALT, step_seed
 
 B, N_FORECAST = 64, 100
 REQUESTS = (64, 17, 1)  # windows per request: full, padded, single
@@ -1390,6 +1424,403 @@ def eval_kernel_timing(t0, params, flops_peak: float, bw_peak: float) -> dict:
     return out
 
 
+# -- phase 10: WaveEq -----------------------------------------------------------
+
+# The recipes of the reference README (tests/test_recipes.py:28-36), cut to
+# WAVE_EPOCHS x WAVE_STEPS; bf16, the train CLI's default precision.
+WAVE_RECIPES = {
+    "wave": ("--data wave --nt_cond 5 --nt_pred 20 --batch_size 128 --code_size_t 32 "
+             "--code_size_s 32 --gain_resnet 0.71 --offset 5 --n_blocks 3 --mixing mul "
+             "--architecture mlp --enc_hidden_size 1200 --dec_hidden_size 1200 "
+             "--dec_n_layers 4 --lamb_ae 1").split(),
+    "wave_partial": ("--data wave_partial --nt_cond 5 --nt_pred 20 --batch_size 128 "
+                     "--code_size_t 32 --code_size_s 32 --gain_resnet 0.71 --offset 5 "
+                     "--n_blocks 3 --mixing mul --architecture mlp --enc_hidden_size 2400 "
+                     "--dec_hidden_size 150 --lamb_ae 1").split(),
+}
+WAVE_SIZE, WAVE_SEQ_LEN, WAVE_SEED = 300, 300, 42  # gen_wave's defaults: the canonical data
+WAVE_SIM_SEQS = 4
+# simulate_wave, max |error| of a frame over its max |w|.  Card against the
+# port on the CPU: the same elementwise ATen ops in the same order, no
+# reduction, so only the last bits of exp (and a contraction inside one
+# kernel) can differ; the port against the JAX package on the CPU, whose
+# XLA contracts products and sums, measures 1.2e-5.  Against the f64 RK4:
+# f32 rounds 299 small increments; 2.5e-4 measured on the CPU, for the JAX
+# package's f32 as for the port's.
+WAVE_SIM_RTOL, WAVE_SIM_F64_RTOL = 1e-4, 1e-3
+WAVE_EPOCHS, WAVE_STEPS = 2, 20
+# The CLI's loss at its last logged step (40) against its first (step 5), a
+# fresh batch every step: it falls, not steadily (the T regularizer grows
+# while the forecast error falls).  Measured on an H100: 0.751 on wave
+# (1.443 -> 1.084, with 1.279 at step 35), 0.709 on wave_partial.
+WAVE_LOSS_FALL = 1.0
+WAVE_RESUME_EPOCHS, WAVE_RESUME_STEPS, WAVE_RESUME_STOP_AFTER = 2, 6, 8
+WAVE_EVAL_B = 256           # cli.test_wave's default batch
+WAVE_CPU_BATCHES = 4        # the f32 eval on the CPU, against the card: 1,024 windows
+WAVE_ROLLOUT_STEPS = 45     # nt_cond 5 + the protocol's 40 (offset 5)
+# Per-sequence MSE@t+40 of the f32 seed-0 model, card against CPU, TF32 off:
+# the limit phase 9b holds the Evaluator to.
+WAVE_MSE_RTOL = 1e-4
+
+
+def wave_rk4_f64(c: np.ndarray, f0: np.ndarray, seq_len: int, tableau: str,
+                 dt: float = 1e-3) -> np.ndarray:
+    """(N, seq_len, 64, 64) waves by RK4 with every operation in f64: numpy,
+    written out apart from ``data/wave_eq.py`` (the reference's physics:
+    5-point stencil on [2, 62), source f0 exp(-20 t) in the r 5 disk)."""
+    c = np.asarray(c, np.float64)[:, None, None]
+    f0 = np.asarray(f0, np.float64)[:, None, None]
+    jj, ii = np.meshgrid(np.arange(64), np.arange(64))
+    mask = (((jj - 32) ** 2 + (ii - 32) ** 2) < 25).astype(np.float64)
+
+    def lap(w):
+        out = np.zeros_like(w)
+        k2, k1, k0 = -1 / 12, 4 / 3, -5 / 2
+        out[..., :, 2:-2] += (k2 * w[..., :, 4:] + k1 * w[..., :, 3:-1] + k0 * w[..., :, 2:-2]
+                              + k1 * w[..., :, 1:-3] + k2 * w[..., :, :-4])
+        out[..., 2:-2, :] += (k2 * w[..., 4:, :] + k1 * w[..., 3:-1, :] + k0 * w[..., 2:-2, :]
+                              + k1 * w[..., 1:-3, :] + k2 * w[..., :-4, :])
+        return out
+
+    def f(t, w, wd):
+        return wd, c * c * lap(w) + f0 * np.exp(-20 * t) * mask
+
+    w = np.zeros((c.shape[0], 64, 64))
+    wd = np.zeros_like(w)
+    frames = [w]
+    for s in range(seq_len - 1):
+        t = s * dt
+        k1 = f(t, w, wd)
+        if tableau == "classic":
+            k2 = f(t + dt / 2, w + dt / 2 * k1[0], wd + dt / 2 * k1[1])
+            k3 = f(t + dt / 2, w + dt / 2 * k2[0], wd + dt / 2 * k2[1])
+            k4 = f(t + dt, w + dt * k3[0], wd + dt * k3[1])
+            w, wd = (w + dt / 6 * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0]),
+                     wd + dt / 6 * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1]))
+        else:
+            k2 = f(t + dt / 3, w + dt / 3 * k1[0], wd + dt / 3 * k1[1])
+            k3 = f(t + 2 * dt / 3, w + dt * (k2[0] - k1[0] / 3), wd + dt * (k2[1] - k1[1] / 3))
+            k4 = f(t + dt, w + dt * (k1[0] - k2[0] + k3[0]), wd + dt * (k1[1] - k2[1] + k3[1]))
+            w, wd = (w + dt / 8 * (k1[0] + 3 * k2[0] + 3 * k3[0] + k4[0]),
+                     wd + dt / 8 * (k1[1] + 3 * k2[1] + 3 * k3[1] + k4[1]))
+        frames.append(w)
+    return np.stack(frames, axis=1)
+
+
+def frame_rel_err(out: np.ndarray, ref: np.ndarray) -> float:
+    """max over frames of max |out - ref| / max |ref| of that frame (frames
+    that are all zero in ``ref`` must be all zero in ``out``)."""
+    diff = np.abs(out - ref).max(axis=(-1, -2))
+    scale = np.abs(ref).max(axis=(-1, -2))
+    if (diff[scale == 0] > 0).any():
+        return float("inf")
+    return float((diff[scale > 0] / scale[scale > 0]).max())
+
+
+def wave_simulator(dev) -> None:
+    """Phase 10a: simulate_wave on the card against the CPU and against f64."""
+    f0s, cs = wave_eq.draw_parameters(WAVE_SIM_SEQS, WAVE_SEED)
+    for tableau in ("38", "classic"):
+        t = time.perf_counter()
+        card = wave_eq.simulate_wave(cs, f0s, seq_len=WAVE_SEQ_LEN, tableau=tableau, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        card = card.cpu().numpy()
+        cpu = wave_eq.simulate_wave(cs, f0s, seq_len=WAVE_SEQ_LEN, tableau=tableau,
+                                    device="cpu").numpy()
+        f64 = wave_rk4_f64(cs, f0s, WAVE_SEQ_LEN, tableau)
+        errs = {"cpu": frame_rel_err(card, cpu), "f64": frame_rel_err(card, f64),
+                "cpu_f64": frame_rel_err(cpu, f64)}
+        print(f"simulate_wave on the card, {WAVE_SIM_SEQS} sequences x {WAVE_SEQ_LEN} steps of "
+              f"64x64, tableau {tableau}: {card_s:.3f} s; error relative to each frame's max: "
+              f"card against CPU {errs['cpu']:.3e} (tolerance {WAVE_SIM_RTOL:g}; bitwise "
+              f"{card.tobytes() == cpu.tobytes()}), card against f64 RK4 {errs['f64']:.3e} "
+              f"(tolerance {WAVE_SIM_F64_RTOL:g}); the CPU's own f32 against f64 "
+              f"{errs['cpu_f64']:.3e}; max |w| {np.abs(card).max():.4e}")
+        check(card.shape == (WAVE_SIM_SEQS, WAVE_SEQ_LEN, 64, 64)
+              and bool(np.isfinite(card).all()), "simulate_wave shape or values")
+        check(errs["cpu"] <= WAVE_SIM_RTOL and errs["f64"] <= WAVE_SIM_F64_RTOL,
+              f"simulate_wave on the card ({tableau})")
+
+
+def wave_dataset(dev, data_dir: str) -> None:
+    """Phase 10b: the canonical dataset generated on the card, and its pixels."""
+    t = time.perf_counter()
+    wave_eq.generate_dataset(data_dir, WAVE_SIZE, WAVE_SEQ_LEN, seed=WAVE_SEED, device=dev)
+    gen_s = time.perf_counter() - t
+    rng = np.random.RandomState(WAVE_SEED)  # the reference's loop, gen_wave.py:121-130
+    host = np.array([(rng.uniform(1, 30), rng.uniform(300, 400)) for _ in range(WAVE_SIZE)],
+                    np.float32)
+    f0s, cs = wave_eq.draw_parameters(WAVE_SIZE, WAVE_SEED)
+    files = sorted(os.listdir(os.path.join(data_dir, "data")))
+    size = sum(os.path.getsize(os.path.join(data_dir, "data", f)) for f in files)
+    stored = np.array([np.load(os.path.join(data_dir, "data", f"homogenous_wave{i}.npz"))["c"]
+                       for i in range(WAVE_SIZE)], np.float32)
+    wave_eq.generate_pixels(data_dir)
+    print(f"generate_dataset on the card: {WAVE_SIZE} sequences x {WAVE_SEQ_LEN} frames, seed "
+          f"{WAVE_SEED}, {len(files)} npz files, {size / 1e9:.3f} GB, in {gen_s:.1f} s (integration "
+          f"on the card and the writes); f0 and c byte-equal to a host RandomState"
+          f"({WAVE_SEED}): {f0s.tobytes() == host[:, 0].tobytes()} and "
+          f"{cs.tobytes() == host[:, 1].tobytes()}; the files' c fields: "
+          f"{stored.tobytes() == cs.tobytes()}")
+    check(len(files) == WAVE_SIZE and f0s.tobytes() == host[:, 0].tobytes()
+          and cs.tobytes() == host[:, 1].tobytes() and stored.tobytes() == cs.tobytes(),
+          "WaveEq draws or files")
+
+
+def wave_config(kind: str, data_dir: str, **kw) -> ExperimentConfig:
+    argv = WAVE_RECIPES[kind] + ["--xp_dir", "", "--data_dir", data_dir]
+    cfg = config_from_args(build_parser().parse_args(argv))
+    return dataclasses.replace(cfg, **kw).validate()
+
+
+def wave_sampler(dev, data_dir: str) -> DeviceWaveEq:
+    """Phase 10c: the recipe's train split on the card, windows of the same
+    draws gathered on the card and on the CPU."""
+    cfg = wave_config("wave", data_dir)
+    t = time.perf_counter()
+    host = registry.make_train_dataset(cfg)
+    load_s = time.perf_counter() - t
+    gen = DeviceWaveEq.from_host_dataset(host, device=dev)
+    cpu_gen = DeviceWaveEq.from_host_dataset(host, device="cpu")
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(step_seed(cfg.seed, DATA_SALT, 0))
+    draws = gen.draw(rng, cfg.batch_size)
+    card = gen.gather(*draws).cpu()
+    cpu = cpu_gen.gather(*(d.cpu() for d in draws))
+    same = card.numpy().tobytes() == cpu.numpy().tobytes()
+    ms = cuda_ms(lambda: datagen_batch(gen, cfg, 0, rng), reps=10, inner=5)
+    kernels, busy_ms = device_kernels(lambda: datagen_batch(gen, cfg, 0, rng))
+    mb = gen.flat.numel() * 4 / 1e6
+    print(f"DeviceWaveEq: the train split ({gen.n_seq} sequences x {gen.nt} frames, "
+          f"{len(gen)} windows of {gen.seq_len}) loaded in {load_s:.1f} s, {mb:.1f} MB on the "
+          f"card; one B {cfg.batch_size} batch of the same draws, card == CPU bitwise: {same}; "
+          f"datagen_batch {ms:.4f} ms between CUDA events, {kernels:.0f} device kernels busy "
+          f"{busy_ms:.4f} ms (profiler)")
+    check(same and tuple(card.shape) == (cfg.batch_size, gen.seq_len, 64, 64, 1),
+          "WaveEq windows differ between the card and the CPU")
+    return gen
+
+
+def wave_train(dev, data_dir: str, work: str, wave_gen: DeviceWaveEq) -> dict:
+    """Phase 10d: both recipes through the train CLI, profiled; a mid-epoch
+    resume.  Returns {kind: xp_dir}."""
+    xps = {}
+    for kind, flags in WAVE_RECIPES.items():
+        xp = os.path.join(work, kind)
+        argv = ["--xp_dir", xp, "--data_dir", data_dir, *flags, "--seed", "0", "--epochs",
+                str(WAVE_EPOCHS), "--steps_per_epoch", str(WAVE_STEPS), "--log_every", "5"]
+        print("train CLI: python -m spatiotemporal_variable_separation_tpu_torch.cli.main "
+              + " ".join(argv))
+        reset_launch_counts()
+        state = cli_main.main(argv)
+        launches = dict(mlp_resnet_rollout.variant_launches)
+        rows = metrics_rows(xp)
+        losses = [(int(r["step"]), float(r["loss"])) for r in rows if not r["samples_per_sec"]]
+        epochs = [float(r["samples_per_sec"]) for r in rows if r["samples_per_sec"]]
+        cfg = ExperimentConfig.from_json_file(os.path.join(xp, "params.json"))
+        print(f"  {kind}: steps {state.step}, precision {cfg.precision}, rollout kernel launches "
+              f"while training {launches}; loss by step: "
+              + ", ".join(f"{s}: {v:.4f}" for s, v in losses))
+        check(state.step == WAVE_EPOCHS * WAVE_STEPS and cfg.precision == "bf16",
+              f"{kind}: CLI steps or precision")
+        check(launches == {"cluster": 0, "stream": 0}, f"{kind}: training launched the kernel")
+        check(len(losses) >= 2 and all(np.isfinite(v) for _, v in losses), f"{kind}: loss rows")
+        print(f"  last/first logged loss {losses[-1][1] / losses[0][1]:.4f} (must be below "
+              f"{WAVE_LOSS_FALL:g})")
+        check(losses[-1][1] < WAVE_LOSS_FALL * losses[0][1], f"{kind}: the loss did not fall")
+        for e, sps in enumerate(epochs):
+            print(f"  epoch {e}: {sps:.1f} samples/s = {cfg.batch_size / sps * 1e3:.3f} ms/step"
+                  + (" (includes the first step's warm-up)" if e == 0 else ""))
+        check(len(epochs) == WAVE_EPOCHS, f"{kind}: one samples/s row an epoch")
+        gen = wave_gen if kind == "wave" else registry.make_device_generator(cfg, dev)
+        step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
+        for _ in range(3):
+            step(state)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(WAVE_STEPS):
+            step(state)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) / WAVE_STEPS * 1e3
+        print(f"  the fused step alone: {step_ms:.3f} ms/step, "
+              f"{cfg.batch_size / step_ms * 1e3:.1f} samples/s ({WAVE_STEPS} steps, fenced)")
+        profile_train_steps(state, lambda s, c, t: step(s), None, None)
+        xps[kind] = xp
+
+    torch.backends.cudnn.deterministic = True
+    states, losses = {}, {}
+    try:
+        for run in ("a", "b"):
+            cfg = wave_config("wave", data_dir, xp_dir=os.path.join(work, f"wave_resume_{run}"),
+                              seed=0, epochs=WAVE_RESUME_EPOCHS,
+                              steps_per_epoch=WAVE_RESUME_STEPS)
+            os.makedirs(cfg.xp_dir)
+            cfg.save(os.path.join(cfg.xp_dir, "params.json"))
+            if run == "b":
+                def stop(msg):  # loss lines lag one boundary: after step 8 is logged
+                    if f"step {WAVE_RESUME_STOP_AFTER}:" in msg:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                stopped = run_training(cfg, device=dev, log_every=1, log_fn=stop)
+                check(stopped.step == WAVE_RESUME_STOP_AFTER + 1, "wave run B did not stop")
+            states[run] = run_training(cfg, device=dev, log_every=1, log_fn=lambda s: None,
+                                       resume=run == "b")
+            losses[run] = {int(r["step"]): r["loss"] for r in metrics_rows(cfg.xp_dir)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ta, tb = train_state_tensors(states["a"]), train_state_tensors(states["b"])
+    differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    shared = sorted(set(losses["a"]) & set(losses["b"]))
+    loss_differ = [s for s in shared if losses["a"][s] != losses["b"][s]]
+    print(f"wave resume on the card ({WAVE_RESUME_EPOCHS} epochs x {WAVE_RESUME_STEPS} steps, "
+          f"SIGTERM after step {WAVE_RESUME_STOP_AFTER}): steps {states['a'].step} and "
+          f"{states['b'].step}; {len(differ)} of {len(ta)} tensors (params, Adam state) differ; "
+          f"{len(loss_differ)} of {len(shared)} shared loss strings differ")
+    check(states["a"].step == states["b"].step == WAVE_RESUME_EPOCHS * WAVE_RESUME_STEPS
+          and not differ and not loss_differ, "the resumed wave run is not bitwise")
+    return xps
+
+
+def wave_eval_clis(xps: dict, data_dir: str, n_seq: int) -> dict:
+    """Phase 10e: cli.test_wave on both bf16 checkpoints, the whole test split
+    (``n_seq`` windows)."""
+    out = {}
+    for kind, xp in xps.items():
+        argv = ["--xp_dir", xp, "--data_dir", data_dir]
+        print(f"eval CLI (bf16 checkpoint of 10d): python -m {cli_test_wave.__name__} "
+              + " ".join(argv))
+        reset_launch_counts()
+        t = time.perf_counter()
+        means = cli_test_wave.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(mlp_resnet_rollout.variant_launches)
+        record = json.load(open(os.path.join(xp, "evals.json")))["wave"]
+        print(f"  {kind}: mse_t40 {means['mse_t40']:.6f}; {n_seq} windows in {wall:.1f} s "
+              f"({n_seq / wall:.1f} windows/s, test-split load included); rollout launches "
+              f"{launches}; evals.json {record}")
+        check(np.isfinite(means["mse_t40"]) and record["mse_t40"] == means["mse_t40"]
+              and "max_batches" not in record, f"{kind}: mse_t40 or evals.json")
+        check(launches == {"cluster": 0, "stream": 0}, f"{kind}: the bf16 eval launched a kernel")
+        out[kind] = (n_seq, wall, means["mse_t40"])
+    return out
+
+
+def wave_eval_f32(dev, data_dir: str, work: str, test: wave_eq.WaveEq, flops_peak: float,
+                  bw_peak: float) -> dict:
+    """Phase 10f: the f32 seed-0 WaveEq model through the streaming kernel;
+    the Evaluator on the card against the CPU; the kernel against plain at
+    the protocol's rollout shape, on windows of the test split ``test``."""
+    cfg = wave_config("wave", data_dir, precision="f32", nt_pred=eval_wave.NT_PRED, seed=0)
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+    xp = os.path.join(work, "wave_f32")
+    os.makedirs(xp)
+    n_items = len(test)
+    n_batches = -(-n_items // WAVE_EVAL_B)
+    reset_launch_counts()
+    t = time.perf_counter()
+    means = eval_wave.evaluate(xp, data_dir, WAVE_EVAL_B, model_bundle=(model, cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    plan = rollout_plan(WAVE_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
+    smem = {(c, r): cluster_smem_bytes(cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks, c, r)
+            for c, r in ((16, 8), (16, 4))}
+    print(f"evaluate(model_bundle=f32 seed-0 WaveEq model, full width), {n_items} windows in "
+          f"{n_batches} batches of {WAVE_EVAL_B}: {wall:.1f} s; mse_t40 {means['mse_t40']:.6f}; "
+          f"rollout plan {plan}; launches {launches} (one a batch); a cluster of 16 would need "
+          f"{smem[16, 8]} bytes at 8 rows, {smem[16, 4]} at 4, over the {SMEM_LIMIT} a CTA has")
+    check(np.isfinite(means["mse_t40"]), "f32 wave mse_t40")
+    check((plan.variant, plan.cluster) == ("stream", 1), f"the wave plan {plan} is not stream")
+    check(launches == {"cluster": 0, "stream": n_batches}, "one streaming launch a wave batch")
+
+    card = eval_wave.frame_mses(xp, data_dir, model, cfg, WAVE_EVAL_B, WAVE_CPU_BATCHES)
+    cpu = eval_wave.frame_mses(xp, data_dir, copy.deepcopy(model).cpu(), cfg, WAVE_EVAL_B,
+                               WAVE_CPU_BATCHES)
+    seq_err = float(np.max(np.abs(card.mean(1) - cpu.mean(1)) / cpu.mean(1)))
+    frame_err = float(np.max(np.abs(card - cpu) / cpu))
+    print(f"  Evaluator card against CPU (f32, TF32 off), {len(cpu)} windows: per-sequence MSE "
+          f"worst relative {seq_err:.3e} (tolerance {WAVE_MSE_RTOL:g}), per frame {frame_err:.3e}; "
+          f"means {card.mean():.6f} and {cpu.mean():.6f}")
+    check(card.shape == cpu.shape == (WAVE_CPU_BATCHES * WAVE_EVAL_B, eval_wave.NT_PRED)
+          and seq_err <= WAVE_MSE_RTOL, "the wave Evaluator, card against CPU")
+
+    cond = np.stack([test[i][0] for i in range(WAVE_EVAL_B)])
+    with torch.inference_mode():
+        t0 = model.encode_t(torch.from_numpy(cond).to(dev)).contiguous()
+    params = model.t_resnet.flat_params()
+    n = WAVE_ROLLOUT_STEPS
+    out = mlp_resnet_rollout(t0, params, n)
+    ref = mlp_resnet_rollout_reference(t0, params, n)
+    rel = step_rel_err(out, ref)
+    abs_err = float((out - ref).abs().max())
+    print(f"  streaming kernel vs plain at B {WAVE_EVAL_B} x {n} steps x {cfg.n_blocks} blocks "
+          f"(code {cfg.code_size_t}, H {cfg.res_hidden_size}): worst step-relative error "
+          f"{rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs {abs_err:.3e} at max |t| "
+          f"{float(ref.abs().max()):.3e}")
+    check(rel <= ROLLOUT_REL_TOL, "streaming kernel disagrees with plain at the wave shape")
+    b, code = t0.shape
+    hidden = params[0].shape[1]
+    bufs = (torch.empty(n, b, code, device=dev), torch.empty(b, hidden, device=dev),
+            torch.empty(b, hidden, device=dev), torch.empty(b, code, device=dev))
+    check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
+          "addmm loop disagrees at the wave shape")
+    runs = {"stream": [], "plain": [], "addmm": []}
+    fns = {"stream": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
+           "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
+           "addmm": lambda: addmm_loop(t0, params, n, *bufs)}
+    for k in ("stream", "plain", "addmm", "addmm", "plain", "stream"):
+        runs[k].append(cuda_ms(fns[k], reps=10, inner=5))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    ops, nbytes = rollout_cost(b, code, hidden, cfg.n_blocks, n)
+    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    bound = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"  at that shape, in turns: streaming kernel {ms['stream']:.4f} ms "
+          f"({runs['stream'][0]:.4f}, {runs['stream'][1]:.4f}), "
+          f"{ms['stream'] / ((n - 1) * cfg.n_blocks) * 1e3:.2f} us a block-step; plain loop "
+          f"{ms['plain']:.4f} ms; eager addmm loop {ms['addmm']:.4f} ms; bound {ops / 1e9:.3f} "
+          f"GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = {t_ops:.4f} ms, {nbytes / 1e6:.3f} MB "
+          f"at {bw_peak / 1e12:.2f} TB/s = {t_bytes:.4f} ms: {bound:.4f} ms by {bound_by}, "
+          f"{bound / ms['stream']:.1%} of it; addmm / kernel {ms['addmm'] / ms['stream']:.2f}")
+    return {"launches": launches, "plan": plan, "rel": rel, "abs": abs_err, "ms": ms,
+            "bound_ms": bound, "bound_by": bound_by, "n_batches": n_batches,
+            "shapes": f"B {b}, code {code}, H {hidden}, {cfg.n_blocks} blocks, {n} steps"}
+
+
+def wave_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
+    """Phase 10: WaveEq and WaveEq-100 on the card, in the working directory
+    ``work``.  Returns 10f's kernel figures."""
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(work, "wave_data")
+    wave_simulator(dev)
+    wave_dataset(dev, data_dir)
+    gen = wave_sampler(dev, data_dir)
+    xps = wave_train(dev, data_dir, work, gen)
+    del gen
+    test = wave_eq.WaveEq(data_dir, 5, WAVE_ROLLOUT_STEPS, train=False)  # both recipes' nt_cond
+    wave_eval_clis(xps, data_dir, len(test))
+    f32 = wave_eval_f32(dev, data_dir, work, test, flops_peak, bw_peak)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return f32
+
+
+def phase10_only(dev=None) -> None:
+    """Phase 10 alone, a quicker run on the card than the whole script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase10_only()"
+    """
+    dev = torch.device("cuda:0") if dev is None else dev
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {nvidia_smi()}")
+    card = torch.cuda.get_device_name(0)
+    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    _build.build()
+    with tempfile.TemporaryDirectory() as work:
+        wave_phase(dev, work, flops_peak, bw_peak)
+
+
 def main() -> None:
     # -- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
@@ -1602,6 +2033,15 @@ def main() -> None:
     b16 = evals["b16"]
     eval_ms = eval_kernel_timing(b16["t0"], b16["params"], flops_peak, bw_peak)
 
+    # -- 10. WaveEq and WaveEq-100 ---------------------------------------------
+    with tempfile.TemporaryDirectory() as work:
+        wave = wave_phase(dev, work, flops_peak, bw_peak)
+    wave_keys = {"wave_shapes": wave["shapes"], "wave_plan": wave["plan"]._asdict(),
+                 "wave_ms": wave["ms"]["stream"], "wave_plain_ms": wave["ms"]["plain"],
+                 "wave_addmm_loop_ms": wave["ms"]["addmm"], "wave_bound_ms": wave["bound_ms"],
+                 "wave_bound_by": wave["bound_by"], "wave_max_step_rel_err": wave["rel"],
+                 "wave_max_abs_err": wave["abs"]}
+
     sources = {"cluster": "mlp_resnet_rollout_cluster.cu", "stream": "mlp_resnet_rollout.cu"}
     paths = {"cluster": ("serving, 1-block integrator", launches["cluster"]),
              "stream": ("serving, 4-block integrator", launches4["stream"])}
@@ -1631,6 +2071,11 @@ def main() -> None:
         "shapes": "B 64, code 20, H 512, 1 block, 100 steps",
         "plan": plans[v]._asdict(),
         **eval_ms[v],
+        "launches_wave": {"wave evaluate(model_bundle=f32 seed 0), whole test split (10f)":
+                          wave["launches"][v],
+                          "wave and wave_partial CLIs on the bf16 checkpoints (10e)": 0,
+                          "wave and wave_partial training (10d)": 0},
+        **(wave_keys if v == "stream" else {}),
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,48 @@
+"""WaveEq eval CLI::
+
+    python -m spatiotemporal_variable_separation_tpu_torch.cli.test_wave --xp_dir X --data_dir D
+
+The port's counterpart of the JAX package's ``cli/test_wave.py`` (reference
+``python -m var_sep.test.wave.test``): the same flags, the same ``MSE at
+t+40`` print and the same ``evals.json`` record under ``wave``.  On the card
+unless ``--platform cpu`` asks for the CPU."""
+
+import argparse
+
+
+def main(argv=None):
+    from spatiotemporal_variable_separation_tpu_torch.cli.options import (
+        add_devices_arg,
+        add_max_batches_arg,
+        add_platform_arg,
+        device_from_args,
+    )
+
+    p = argparse.ArgumentParser(prog="varsep WaveEq testing (PyTorch)")
+    p.add_argument("--data_dir", type=str, metavar="DIR", required=True)
+    p.add_argument("--xp_dir", type=str, metavar="DIR", required=True)
+    p.add_argument("--epoch", type=int, metavar="EPOCH", default=None)
+    p.add_argument("--batch_size", type=int, metavar="BATCH", default=256)
+    p.add_argument("--save_arrays", action="store_true",
+                   help="Archive cond/gt/pred npz of the first 64 sequences "
+                        "(full grids only; the protocol is unchanged).")
+    add_devices_arg(p)
+    add_platform_arg(p)
+    add_max_batches_arg(p)
+    args = p.parse_args(argv)
+    device = device_from_args(args)
+
+    from spatiotemporal_variable_separation_tpu_torch.eval.common import write_eval_json
+    from spatiotemporal_variable_separation_tpu_torch.eval.wave import evaluate
+
+    means = evaluate(args.xp_dir, args.data_dir, args.batch_size, args.epoch,
+                     max_batches=args.max_batches, save_arrays=args.save_arrays,
+                     device=device)
+    print(f"MSE at t+40: {means['mse_t40']}")
+    extra = {"max_batches": args.max_batches} if args.max_batches is not None else {}
+    write_eval_json(args.xp_dir, "wave", means, epoch=args.epoch, **extra)
+    return means
+
+
+if __name__ == "__main__":
+    main()

@@ -1,3 +1,5 @@
 """Training data: Moving MNIST on the host (``moving_mnist``) and on the card
-(``mnist_device``), the host pipeline (``loader``) and the dataset dispatch
-(``registry``).  Importing this package imports none of them."""
+(``mnist_device``), WaveEq simulated and loaded (``wave_eq``) and its windows
+gathered on the card (``wave_device``), the host pipeline (``loader``) and the
+dataset dispatch (``registry``).  Importing this package imports none of
+them."""

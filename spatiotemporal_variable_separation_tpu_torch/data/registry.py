@@ -2,8 +2,9 @@
 iterators.
 
 Torch counterpart of the JAX package's ``data/registry.py`` for what the port
-trains on so far: Moving MNIST, made on the card or on the host.  The other
-datasets raise ``NotImplementedError`` until their slice is ported."""
+trains on so far: Moving MNIST, made on the card or on the host, and WaveEq
+and WaveEq-100, windows gathered on the card or assembled on the host.  The
+other datasets raise ``NotImplementedError`` until their slice is ported."""
 
 from __future__ import annotations
 
@@ -16,37 +17,59 @@ from spatiotemporal_variable_separation_tpu_torch.data.loader import Batcher, ba
 
 
 def _refuse(cfg: ExperimentConfig) -> None:
-    if cfg.data != "mnist":
+    if cfg.data not in ("mnist", "wave", "wave_partial"):
         raise NotImplementedError(
-            f"dataset {cfg.data!r}: the port trains on Moving MNIST only so far; the "
-            "WaveEq, TaxiBJ, SST and chairs pipelines come with ROADMAP.md Queue 1, "
-            "slice 8 (remaining datasets)")
+            f"dataset {cfg.data!r}: the port trains on Moving MNIST and WaveEq so far; "
+            "the TaxiBJ, SST and chairs pipelines come with ROADMAP.md Queue 1, slice 8 "
+            "(remaining datasets)")
 
 
 def make_train_dataset(cfg: ExperimentConfig):
     _refuse(cfg)
-    from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import MovingMNIST
+    seq_len = cfg.nt_cond + cfg.nt_pred
+    if cfg.data == "mnist":
+        from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import MovingMNIST
 
-    return MovingMNIST.make_dataset(cfg.data_dir, 64, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred,
-                                    4, True, cfg.n_object, train=True, seed=cfg.seed)
+        return MovingMNIST.make_dataset(cfg.data_dir, 64, cfg.nt_cond, seq_len, 4, True,
+                                        cfg.n_object, train=True, seed=cfg.seed)
+    from spatiotemporal_variable_separation_tpu_torch.data.wave_eq import WaveEq, WaveEqPartial
+
+    if cfg.data == "wave":
+        return WaveEq(cfg.data_dir, cfg.nt_cond, seq_len, True, cfg.downsample)
+    return WaveEqPartial(cfg.data_dir, cfg.nt_cond, seq_len, True, cfg.downsample,
+                         cfg.n_wave_points)
 
 
 def make_device_generator(cfg: ExperimentConfig, device=None):
-    """The on-device batch generator (``DeviceMovingMNIST``) on ``device``,
-    or None under ``--no-device_datagen`` or when the digits are missing (the
-    host dataset then raises the missing-file error)."""
+    """The on-device batch generator on ``device`` (``DeviceMovingMNIST``,
+    or ``DeviceWaveEq`` over the train split), or None under
+    ``--no-device_datagen`` or when the data files are missing (the host
+    dataset then raises the missing-file error)."""
     _refuse(cfg)
     if not cfg.device_datagen:
         return None
-    from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
-        DeviceMovingMNIST,
-    )
+    if cfg.data == "mnist":
+        from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
+            DeviceMovingMNIST,
+        )
+
+        try:
+            return DeviceMovingMNIST.from_data_dir(
+                cfg.data_dir, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred, cfg.n_object,
+                device=device)
+        except FileNotFoundError:
+            return None
+    from spatiotemporal_variable_separation_tpu_torch.data.wave_device import DeviceWaveEq
 
     try:
-        return DeviceMovingMNIST.from_data_dir(
-            cfg.data_dir, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred, cfg.n_object, device=device)
-    except FileNotFoundError:
+        host = make_train_dataset(cfg)
+    except (FileNotFoundError, OSError):
         return None
+    if cfg.data == "wave":
+        return DeviceWaveEq.from_host_dataset(host, device=device)
+    # partial observations: the fixed pixel subsample is applied once, here.
+    sub = host.data[:, :, host.rand_w, host.rand_h, :]
+    return DeviceWaveEq(sub, host.nt_cond, host.seq_len, device=device)
 
 
 def steps_per_epoch(cfg: ExperimentConfig, dataset) -> int:
@@ -61,7 +84,8 @@ def epoch_iterator(cfg: ExperimentConfig, dataset, epoch: int) -> Iterator:
     ``--steps_per_epoch``, the LR schedule and resume accounting agree.
 
     Datasets with a vectorized ``generate_batch`` (Moving MNIST) use it on a
-    background thread; map-style datasets go through the shuffled Batcher."""
+    background thread; map-style datasets (WaveEq) go through the shuffled
+    Batcher."""
     n_steps = steps_per_epoch(cfg, dataset)
     if hasattr(dataset, "generate_batch"):
         nt_cond = cfg.nt_cond

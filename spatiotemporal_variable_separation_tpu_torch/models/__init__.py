@@ -1,4 +1,5 @@
-"""The forecaster's modules: layers, DCGAN encoder/decoder, integrator, SeparableNetwork."""
+"""The forecaster's modules: layers, DCGAN and MLP encoders/decoders, integrator,
+SeparableNetwork."""
 
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
 

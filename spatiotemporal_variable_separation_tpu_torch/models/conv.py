@@ -7,7 +7,10 @@
   returns a flat (B, nh) code plus, on request, the four stage outputs
   (NCHW, outermost stage last, i.e. reversed as ``conv.py:98`` returns them).
 * ``DCGAN64Decoder``: the mirror with transposed convs and the optional
-  U-Net skip concatenation; renders one NCHW frame per (S, T) pair.
+  U-Net skip concatenation; renders one NCHW frame per (S, T) pair.  Its
+  ``stack_to_frames`` and ``frame_to_output`` convert between that layout
+  and the JAX package's ``(..., H, W, C)``: every decoder owns its layout,
+  and ``SeparableNetwork`` asks the decoder instead of assuming one.
 
 The encoder flattens its 4x4 map channel-major ``(c, h, w)`` like the
 reference; the JAX package flattens ``(h, w, c)``, so ``to_code``'s rows
@@ -120,3 +123,13 @@ class DCGAN64Decoder(nn.Module):
         if skip is not None:
             h = torch.cat([h, skip[3].to(h.dtype)], dim=1)
         return self.last_act(self.to_frame(h))
+
+    @staticmethod
+    def stack_to_frames(stack: torch.Tensor) -> torch.Tensor:
+        """Decoded steps (n, B, C, H, W) -> the JAX layout (B, n, H, W, C)."""
+        return stack.permute(1, 0, 3, 4, 2)
+
+    @staticmethod
+    def frame_to_output(frame: torch.Tensor) -> torch.Tensor:
+        """A (..., H, W, C) target in this decoder's NCHW output layout."""
+        return frame.movedim(-1, -3)

@@ -2,13 +2,16 @@
 
 Torch counterpart of the JAX package's ``models/factory.py:35-61, 121-149``
 (reference ``main.py:116-140``) for what the port runs so far: the DCGAN-64
-encoder/decoder pair and the MLP-ResNet integrator, under the three precision
-policies.  Every weight is drawn from the caller's ``torch.Generator`` on the
-CPU, so one seed builds the same model on every machine, and the model is
-then moved to ``device``.  Parameters are f32 under every policy.
+and MLP encoders and decoders (in any pairing the config allows) and the
+MLP-ResNet integrator, under the three precision policies.  Every weight is
+drawn from the caller's ``torch.Generator`` on the CPU, so one seed builds
+the same model on every machine, and the model is then moved to
+``device``.  Parameters are f32 under every policy.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,7 +21,11 @@ from spatiotemporal_variable_separation_tpu_torch.models.conv import (
     DCGAN64Encoder,
 )
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
+from spatiotemporal_variable_separation_tpu_torch.models.mlp_encdec import MLPDecoder, MLPEncoder
 from spatiotemporal_variable_separation_tpu_torch.models.separable import SeparableNetwork
+
+# The encoder and decoder families the port builds so far.
+PORTED = ("dcgan", "mlp")
 
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -40,30 +47,46 @@ def integrator_dtype(precision: str) -> torch.dtype:
     return torch.float32 if precision in ("f32", "mixed") else torch.bfloat16
 
 
+def _encoder(cfg: ExperimentConfig, nh: int, **kw) -> torch.nn.Module:
+    """The encoder of ``cfg.architecture`` (JAX ``factory.py:64-82``)."""
+    if cfg.architecture == "dcgan":
+        return DCGAN64Encoder(cfg.nt_cond * cfg.channels, nh, cfg.enc_hidden_size,
+                              bn_dtype=bn_io_dtype(cfg), **kw)
+    return MLPEncoder(cfg.nt_cond * math.prod(cfg.frame_shape), nh, cfg.enc_hidden_size,
+                      cfg.enc_n_layers, **kw)
+
+
+def _decoder(cfg: ExperimentConfig, **kw) -> torch.nn.Module:
+    """The decoder of ``cfg.decoder_arch`` (JAX ``factory.py:85-108``)."""
+    nz = cfg.code_size_s + cfg.code_size_t if cfg.mixing == "concat" else cfg.code_size_t
+    common = dict(last_activation=cfg.last_activation, mixing=cfg.mixing, **kw)
+    if cfg.decoder_arch == "dcgan":
+        return DCGAN64Decoder(nz, cfg.channels, cfg.dec_hidden_size, skip=cfg.skipco,
+                              bn_dtype=bn_io_dtype(cfg), **common)
+    return MLPDecoder(nz, cfg.frame_shape, cfg.dec_hidden_size, cfg.dec_n_layers, **common)
+
+
 def build_separable_network(cfg: ExperimentConfig, device: torch.device,
                             generator: torch.Generator) -> SeparableNetwork:
     """Assemble the forecaster from a config; ``generator`` must be a CPU
     generator (weights are drawn on the CPU, then moved)."""
     cfg = cfg.validate()
-    if cfg.architecture != "dcgan" or cfg.decoder_arch != "dcgan":
-        raise NotImplementedError(
-            f"architecture {cfg.architecture!r}/{cfg.decoder_arch!r}: the port "
-            "builds only the dcgan encoder/decoder so far; the other families "
-            "come with ROADMAP.md Queue 1, slice 7 (remaining architectures)")
+    for kind, arch in (("encoder", cfg.architecture), ("decoder", cfg.decoder_arch)):
+        if arch not in PORTED:
+            raise NotImplementedError(
+                f"{kind} architecture {arch!r}: the port builds the dcgan and mlp encoders "
+                "and decoders so far; vgg, resnet18, encoderSST/decoderSST and the "
+                "convolutional integrator come with ROADMAP.md Queue 1, slice 7")
     if cfg.no_s:
         raise NotImplementedError(
-            "--no_s (ConstantS) comes with ROADMAP.md Queue 1, slice 7")
+            "--no_s: the constant S module (ConstantS) is not ported yet; it comes with "
+            "ROADMAP.md Queue 1, slice 7")
     g = generator
-    in_channels = cfg.nt_cond * cfg.channels
-    enc = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g,
-               dtype=compute_dtype(cfg.precision), bn_dtype=bn_io_dtype(cfg))
-    es = DCGAN64Encoder(in_channels, cfg.code_size_s, cfg.enc_hidden_size, **enc)
-    et = DCGAN64Encoder(in_channels, cfg.code_size_t, cfg.enc_hidden_size, **enc)
-    nz = (cfg.code_size_s + cfg.code_size_t if cfg.mixing == "concat"
-          else cfg.code_size_t)
-    decoder = DCGAN64Decoder(nz, cfg.channels, cfg.dec_hidden_size, skip=cfg.skipco,
-                             last_activation=cfg.last_activation,
-                             mixing=cfg.mixing, **enc)
+    kw = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g,
+              dtype=compute_dtype(cfg.precision))
+    es = _encoder(cfg, cfg.code_size_s, **kw)
+    et = _encoder(cfg, cfg.code_size_t, **kw)
+    decoder = _decoder(cfg, **kw)
     t_resnet = MLPResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size,
                          init_type=cfg.init_resnet, init_gain=cfg.gain_resnet,
                          generator=g, dtype=integrator_dtype(cfg.precision))

@@ -27,8 +27,11 @@ package remats (``separable.py:105, 129, 172, 285``) run under
 statistics alone, as the JAX package's remat does.
 
 Layouts at the public methods follow the JAX package: a window is
-``(B, nt_cond, H, W, C)``, forecasts ``(B, n, H, W, C)``, T codes
-``(B, n, code)``.  Skip maps stay NCHW.
+``(B, nt_cond, *frame)``, forecasts ``(B, n, *frame)``, T codes
+``(B, n, code)``, where a frame is ``(H, W, C)`` or, for partial
+observations, ``(N, 1)``.  The decoder owns its output layout
+(``stack_to_frames``, ``frame_to_output``): NCHW for the DCGAN decoder, the
+frame itself for the MLP one.  Skip maps stay NCHW.
 """
 
 from __future__ import annotations
@@ -46,11 +49,6 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import mlp_resnet_
 def _tile_leading(x: torch.Tensor, n: int) -> torch.Tensor:
     """(B, ...) -> (n*B, ...) by repeating along a new leading axis."""
     return x.unsqueeze(0).expand((n,) + tuple(x.shape)).reshape((n * x.shape[0],) + tuple(x.shape[1:]))
-
-
-def _nchw(frames: torch.Tensor) -> torch.Tensor:
-    """(..., H, W, C) -> (..., C, H, W)."""
-    return frames.movedim(-1, -3)
 
 
 class SeparableNetwork(nn.Module):
@@ -132,12 +130,12 @@ class SeparableNetwork(nn.Module):
 
     def _decode_all(self, s_code: torch.Tensor, skips, t_codes: torch.Tensor
                     ) -> torch.Tensor:
-        """Decode every (S, T_t) pair: t_codes (n, B, code) -> (B, n, H, W, C)."""
+        """Decode every (S, T_t) pair: t_codes (n, B, code) -> (B, n, *frame)."""
         n, b = t_codes.shape[0], t_codes.shape[1]
         if self.training and self.decode_mode == "stepwise":
             frames = torch.stack([self._remat(self.decoder, s_code, t_codes[i], skips)
                                   for i in range(n)])
-            return frames.permute(1, 0, 3, 4, 2)
+            return self.decoder.stack_to_frames(frames)
         per_item = s_code.numel() // b
         if skips is not None:
             per_item += sum(sk.numel() // b for sk in skips)
@@ -153,7 +151,7 @@ class SeparableNetwork(nn.Module):
             return fr.reshape((cn, b) + tuple(fr.shape[1:]))
 
         frames = torch.cat([fold(t_codes[lo:lo + chunk]) for lo in range(0, n, chunk)])
-        return frames.permute(1, 0, 3, 4, 2)  # (n, B, C, H, W) -> (B, n, H, W, C)
+        return self.decoder.stack_to_frames(frames)
 
     # -- public API ----------------------------------------------------
     def get_forecast(self, cond: torch.Tensor, n_forecast: int,
@@ -162,7 +160,7 @@ class SeparableNetwork(nn.Module):
         """Forecast ``n_forecast`` frames (the first is the decode of T_0).
 
         Returns ``(forecasts, t_codes, s_full, t_residuals)``: forecasts
-        (B, n, H, W, C), t_codes (B, n, code), S as the encoder produced it
+        (B, n, *frame), t_codes (B, n, code), S as the encoder produced it
         (``(code, skips)`` when skipco), and in train mode the residuals
         (n-1, n_blocks, B, code).  In eval mode ``t_residuals`` is None: the
         rollout kernel keeps no per-block residuals.
@@ -192,7 +190,7 @@ class SeparableNetwork(nn.Module):
         """
         f32 = torch.float32
         nt_cond = self.nt_cond
-        full = torch.cat([cond, target], dim=1)  # (B, T, H, W, C)
+        full = torch.cat([cond, target], dim=1)  # (B, T, *frame)
         total_t = full.shape[1]
         if not nt_cond <= t_random <= total_t - (offset == 0):
             raise ValueError(f"t_random {t_random} outside [{nt_cond}, "
@@ -204,7 +202,7 @@ class SeparableNetwork(nn.Module):
         t_code_random = self.encode_t(full[:, t_random - nt_cond:t_random])
         s_old, skips = s_old_full if self.skipco else (s_old_full, None)
         recon = self.decoder(s_old, t_code_random, skip=skips)
-        supervision = _nchw(full[:, t_random - offset])
+        supervision = self.decoder.frame_to_output(full[:, t_random - offset])
         ae = ((supervision.to(f32) - recon.to(f32)) ** 2).mean()
 
         # -- S invariance (train.py:38-42): mean squared difference over the
@@ -220,14 +218,14 @@ class SeparableNetwork(nn.Module):
         fc_target = full if offset != 0 else full[:, nt_cond:]
         if self.fused_loss and self.training:
             # The squared error of each decoded frame is summed as it is
-            # decoded, so the (B, horizon, H, W, C) forecast stack is never
+            # decoded, so the (B, horizon, *frame) forecast stack is never
             # held; same objective and gradients, another summation order.
             t_codes, _ = self._integrate(self.encode_t(cond), nt_pred + offset)
             n = t_codes.shape[0]
 
             def frame_sse(t_i: torch.Tensor, tgt_i: torch.Tensor) -> torch.Tensor:
                 frame = self.decoder(s_old, t_i, skip=skips)
-                diff = frame.to(f32) - _nchw(tgt_i).to(f32)
+                diff = frame.to(f32) - self.decoder.frame_to_output(tgt_i).to(f32)
                 return (diff * diff).sum()
 
             sse = torch.zeros((), dtype=f32, device=cond.device)

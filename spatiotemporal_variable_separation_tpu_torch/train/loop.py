@@ -1,10 +1,11 @@
 """Training driver (reference ``var_sep/train.py:91-175``).
 
 Torch counterpart of the JAX package's ``train/loop.py``, on one device:
-* Moving MNIST is made on the card inside the step
-  (``make_fused_datagen_step``) unless ``--no-device_datagen`` asks for the
-  host pipeline (``epoch_iterator`` on a background thread, then
-  ``prefetch_to_device``);
+* each step's batch is made on the card inside the step
+  (``make_fused_datagen_step``: Moving MNIST rendered, or WaveEq windows
+  gathered from the train split uploaded once) unless
+  ``--no-device_datagen`` asks for the host pipeline (``epoch_iterator``
+  on a background thread, then ``prefetch_to_device``);
 * losses are logged (the reference shows a progress bar only), lagged by
   one log boundary so that reading them does not drain the device queue;
 * checkpoints carry the optimizer state and resume bit-exactly mid-epoch:

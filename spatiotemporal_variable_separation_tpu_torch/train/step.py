@@ -20,7 +20,7 @@ streams cannot be reproduced in torch).
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
@@ -28,12 +28,21 @@ import torch
 from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
 
 if TYPE_CHECKING:
-    from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import DeviceMovingMNIST
     from spatiotemporal_variable_separation_tpu_torch.train.state import TrainState
 
 # Salts of the per-step draws (the JAX step folds 2_000_003 into its key for
 # the batch).
 T_SALT, DATA_SALT = 1, 2_000_003
+
+
+class DeviceGenerator(Protocol):
+    """A batch generator on one device: ``data.mnist_device.DeviceMovingMNIST``
+    or ``data.wave_device.DeviceWaveEq``."""
+
+    device: torch.device
+
+    def generate_device_batch(self, generator: torch.Generator, batch: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]: ...
 
 
 def step_seed(seed: int, salt: int, step: int) -> int:
@@ -77,7 +86,7 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
                     optimizer: torch.optim.Adam) -> Callable:
     """Build ``step(state, cond, target, t_random=None) -> metrics``.
 
-    ``cond`` (B, nt_cond, H, W, C) and ``target`` (B, nt_pred, H, W, C) lie
+    ``cond`` (B, nt_cond, *frame) and ``target`` (B, nt_pred, *frame) lie
     on the model's device.  ``metrics`` holds detached f32 scalars on that
     device (reading one waits for the step).
     """
@@ -108,7 +117,7 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
     return step
 
 
-def datagen_batch(generator: DeviceMovingMNIST, cfg: ExperimentConfig, step: int,
+def datagen_batch(generator: DeviceGenerator, cfg: ExperimentConfig, step: int,
                   rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (cond, target) batch of train step ``step``, made on the
     generator's device from ``step_seed(cfg.seed, DATA_SALT, step)``.
@@ -120,7 +129,7 @@ def datagen_batch(generator: DeviceMovingMNIST, cfg: ExperimentConfig, step: int
 
 def make_fused_datagen_step(model: torch.nn.Module, cfg: ExperimentConfig,
                             optimizer: torch.optim.Adam,
-                            generator: DeviceMovingMNIST) -> Callable:
+                            generator: DeviceGenerator) -> Callable:
     """Build ``step(state, t_random=None) -> metrics`` that makes the step's
     batch on the card (``datagen_batch``) and runs ``make_train_step``'s
     update on it (JAX ``train/step.py:117-149``).  The host only seeds a

@@ -194,7 +194,7 @@ def test_bf16_serving_is_refused(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(decoder_architecture="mlp"), "slice 7"),
+    (dict(decoder_architecture="vgg"), "slice 7"),
     (dict(architecture="vgg"), "slice 7"),
     (dict(no_s=True, code_size_s=8), "slice 7"),
 ])
