@@ -2,7 +2,9 @@
 against its plain PyTorch version on the card, serves the full-width
 Moving-MNIST DCGAN forecaster through them, trains it at the flagship
 config of ``bench.py`` and scores it with both Moving MNIST protocols; then
-generates WaveEq on the card, trains both WaveEq recipes and scores them.
+generates WaveEq on the card, trains both WaveEq recipes and scores them;
+then writes the 3D Chairs stand-in corpus, trains the chairs recipe and
+scores its content swap.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -22,7 +24,9 @@ result line is printed):
    relative, each case through the kernel its plan names: the serving
    shapes (B 64, code 20, H 512, 1 block, 100 steps; the cluster kernel at
    C 8, and the streaming kernel forced), B 13 with 2 blocks (C 16), B 13 at
-   H 516 (C 8, a ragged hidden slice) and 4 blocks at H 512 (streaming);
+   H 516 (C 8, a ragged hidden slice), 4 blocks at H 512 (streaming), and
+   phase 11a's chairs shapes (code 10, H 512, 1 block at B 16 x 15 and B 64 x
+   100; C 8, and the streaming kernel forced);
 4. serving, two paths, each with the launch counts set to 0 just before it
    and read just after:
    a. the main path: ``Forecaster(batch_size=64, n_forecast=100)`` on the
@@ -133,12 +137,33 @@ result line is printed):
        card against CPU; the streaming kernel against plain at B 256 x 45
        steps x 3 blocks, timed in turns with the plain and ``addmm`` loops,
        beside the bound.
+11. 3D Chairs (the recipe of ``tests/test_recipes.py:18-19``, full width), in
+    a temporary directory:
+    a. the kernel at the chairs shapes, with phase 3's cases;
+    b. the ResNet-18 encoder of the seed-0 model, card against CPU, f32 (TF32
+       off) and bf16, eval and train mode; one f32 chairs train step at B 8,
+       card against CPU, with phase 6's tolerances and 0 launches;
+    c. ``cli.gen_synthetic chairs`` (200 objects, 12,400 PNGs); the train
+       split on the card (``DeviceChairs``, uint8) and a B 128 batch of the
+       same draws against the host ``Chairs`` items, bitwise; ms a batch;
+    d. the train CLI, bf16 B 128, 2 epochs x 20 steps: the loss falls, 0
+       launches, samples/s, the fused step's ms and a profiler trace; a run
+       stopped by SIGTERM and resumed, bitwise under ``cudnn.deterministic``;
+       the host data path;
+    e. ``cli.test_chairs_disentanglement --nt_pred 10`` on the bf16
+       checkpoint over the whole test split (1,860 sequences), 0 launches,
+       and its resume, bitwise;
+    f. ``eval.chairs_swap.evaluate(model_bundle=...)`` on the f32 seed-0
+       model: one cluster launch a batch; the Evaluator card against CPU on
+       2 batches; the kernel at B 16 x 15 steps timed in turns with the
+       streaming kernel, the plain and ``addmm`` loops, beside the bound.
 
 The line before the last is a JSON object with one entry per kernel (its
-serving-path launches, its launches on each eval path in ``launches_eval``
-and on the WaveEq paths in ``launches_wave``, with its B 16 plan and times,
-and the streaming kernel's ``wave_*`` times at the WaveEq shape); the last
-is ``{"ok": true, "device": {...}}``.
+serving-path launches, its launches on each eval path in ``launches_eval``,
+on the WaveEq paths in ``launches_wave`` and on the chairs paths in
+``launches_chairs``, with its B 16 plan and times, the streaming kernel's
+``wave_*`` times at the WaveEq shape, and both kernels' ``chairs_*`` times
+at the chairs shape); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -162,7 +187,11 @@ import torch
 from spatiotemporal_variable_separation_tpu_torch import ExperimentConfig
 from spatiotemporal_variable_separation_tpu_torch import checkpoint
 from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
+from spatiotemporal_variable_separation_tpu_torch.cli import gen_synthetic as cli_gen_synthetic
 from spatiotemporal_variable_separation_tpu_torch.cli import main as cli_main
+from spatiotemporal_variable_separation_tpu_torch.cli import (
+    test_chairs_disentanglement as cli_test_chairs,
+)
 from spatiotemporal_variable_separation_tpu_torch.cli import test_mnist as cli_test_mnist
 from spatiotemporal_variable_separation_tpu_torch.cli import (
     test_mnist_disentanglement as cli_test_swap,
@@ -170,6 +199,8 @@ from spatiotemporal_variable_separation_tpu_torch.cli import (
 from spatiotemporal_variable_separation_tpu_torch.cli import test_wave as cli_test_wave
 from spatiotemporal_variable_separation_tpu_torch.cli.options import build_parser, config_from_args
 from spatiotemporal_variable_separation_tpu_torch.data import registry, wave_eq
+from spatiotemporal_variable_separation_tpu_torch.data.chairs import Chairs
+from spatiotemporal_variable_separation_tpu_torch.data.chairs_device import DeviceChairs
 from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
     DeviceMovingMNIST,
     stochastic_positions,
@@ -182,6 +213,7 @@ from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import (
     synthetic_digits,
 )
 from spatiotemporal_variable_separation_tpu_torch.data.wave_device import DeviceWaveEq
+from spatiotemporal_variable_separation_tpu_torch.eval import chairs_swap as eval_chairs
 from spatiotemporal_variable_separation_tpu_torch.eval import common as eval_common
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist as eval_mnist
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist_swap as eval_swap
@@ -464,12 +496,14 @@ def bn_stats(model) -> dict:
             for k in ("running_mean", "running_var")}
 
 
-def train_step_card_vs_cpu(dev) -> None:
-    """Phase 6: one f32 train step on the card and on the CPU from the same
-    weights, batch and t_random."""
-    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32",
-                           fused_loss=True, batch_size=TRAIN_CHECK_B)
-    seq = moving_squares(TRAIN_CHECK_B, cfg.nt_cond + cfg.nt_pred, seed=6)
+def train_step_card_vs_cpu(dev, cfg=None, seq=None, what: str = "Moving MNIST DCGAN") -> None:
+    """Phase 6 (and 11b): one f32 train step on the card and on the CPU from
+    the same weights, batch and t_random; by default phase 6's full-width
+    DCGAN on moving squares."""
+    if cfg is None:
+        cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32",
+                               fused_loss=True, batch_size=TRAIN_CHECK_B)
+        seq = moving_squares(TRAIN_CHECK_B, cfg.nt_cond + cfg.nt_pred, seed=6)
     cpu_model = build_separable_network(cfg, torch.device("cpu"), torch.Generator().manual_seed(0))
     dev_model = copy.deepcopy(cpu_model).to(dev)
     results = {}
@@ -488,8 +522,9 @@ def train_step_card_vs_cpu(dev) -> None:
                          bn_stats(model),
                          {n: p.detach().double().cpu() for n, p in model.named_parameters()})
     (m_cpu, g_cpu, s_cpu, p_cpu), (m_dev, g_dev, s_dev, p_dev) = results["cpu"], results["card"]
-    print(f"train step, card against CPU (f32, TF32 off, B {TRAIN_CHECK_B}, full width, "
-          f"t_random {TRAIN_CHECK_T_RANDOM}): rollout kernel launches in the step {launches}")
+    print(f"train step, card against CPU ({what}, f32, TF32 off, B {cfg.batch_size}, full "
+          f"width, t_random {TRAIN_CHECK_T_RANDOM}): rollout kernel launches in the step "
+          f"{launches}")
     check(launches == {"cluster": 0, "stream": 0}, "the train step launched the rollout kernel")
     for k in m_cpu:
         rel = abs(m_dev[k] - m_cpu[k]) / abs(m_cpu[k])
@@ -1231,14 +1266,16 @@ def eval_f32_bundle(model, cfg, data_dir: str, work: str) -> dict:
     return launches
 
 
-def eval_resume(dev, xp: str, data_dir: str) -> None:
-    """Phase 9d: the Moving MNIST eval of the bf16 checkpoint killed after
+def eval_resume(xp: str, data_dir: str, evaluate, protocol: str, results: str,
+                **kw) -> None:
+    """Phase 9d (and 11e): ``evaluate`` on the bf16 checkpoint killed after
     batch 2 and resumed, against the uninterrupted run, under
-    cudnn.deterministic."""
+    cudnn.deterministic: the means and the per-sequence rows bitwise."""
     torch.backends.cudnn.deterministic = True
-    kw = dict(nt_pred=10, max_batches=RESUME_BATCHES, save_arrays=False, device=dev)
     try:
-        full = eval_mnist.evaluate(xp, data_dir, **kw)
+        full = evaluate(xp, data_dir, **kw)
+        with np.load(os.path.join(xp, results)) as z:
+            full_rows = {k: z[k] for k in z.files}
         real_add = eval_common.EvalProgress.add
 
         def dying_add(self, b, rows):
@@ -1248,20 +1285,23 @@ def eval_resume(dev, xp: str, data_dir: str) -> None:
 
         eval_common.EvalProgress.add = dying_add
         try:
-            eval_mnist.evaluate(xp, data_dir, **kw)
+            evaluate(xp, data_dir, **kw)
             check(False, "the killed eval did not stop")
         except RuntimeError as e:
             check("killed" in str(e), f"the killed eval failed otherwise: {e}")
         finally:
             eval_common.EvalProgress.add = real_add
-        check(os.path.exists(os.path.join(xp, "mnist_t10.progress.npz")), "no progress file")
-        resumed = eval_mnist.evaluate(xp, data_dir, resume=True, **kw)
+        check(os.path.exists(os.path.join(xp, f"{protocol}.progress.npz")), "no progress file")
+        resumed = evaluate(xp, data_dir, resume=True, **kw)
+        with np.load(os.path.join(xp, results)) as z:
+            rows_equal = full_rows.keys() == set(z.files) and all(
+                full_rows[k].tobytes() == z[k].tobytes() for k in z.files)
     finally:
         torch.backends.cudnn.deterministic = False
-    print(f"eval resume on the card (cudnn.deterministic, {RESUME_BATCHES} batches, killed "
-          f"after batch {RESUME_KILL_AFTER}): uninterrupted {full}, resumed {resumed}; bitwise "
-          f"equal: {resumed == full}")
-    check(resumed == full, "the resumed eval differs from the uninterrupted one")
+    print(f"eval resume on the card ({protocol}, cudnn.deterministic, {kw['max_batches']} "
+          f"batches, killed after batch {RESUME_KILL_AFTER}): uninterrupted {full}, resumed "
+          f"{resumed}; bitwise equal: {resumed == full}, per-sequence rows: {rows_equal}")
+    check(resumed == full and rows_equal, "the resumed eval differs from the uninterrupted one")
 
 
 def profile_busy(fn, n: int) -> tuple:
@@ -1366,7 +1406,8 @@ def evaluation(dev, smi: str, model, cfg, xp: str, data_dir: str, work: str) -> 
     del test_set
     runs = eval_clis(xp, data_dir)
     bundle = eval_f32_bundle(model, cfg, data_dir, work)
-    eval_resume(dev, xp, data_dir)
+    eval_resume(xp, data_dir, eval_mnist.evaluate, "mnist_t10", "results.npz", nt_pred=10,
+                max_batches=RESUME_BATCHES, save_arrays=False, device=dev)
     bf16_model, _ = load_for_eval(xp, device=dev)
     eval_timing(dev, smi, {"bf16 checkpoint": bf16_model, "f32 seed 0": model}, data_dir, runs)
     return {"b16": b16, "bundle": bundle, "ssim": ssim}
@@ -1648,21 +1689,32 @@ def wave_train(dev, data_dir: str, work: str, wave_gen: DeviceWaveEq) -> dict:
         profile_train_steps(state, lambda s, c, t: step(s), None, None)
         xps[kind] = xp
 
+    train_resume_bitwise(dev, "wave", lambda run: wave_config(
+        "wave", data_dir, xp_dir=os.path.join(work, f"wave_resume_{run}"), seed=0,
+        epochs=WAVE_RESUME_EPOCHS, steps_per_epoch=WAVE_RESUME_STEPS),
+        WAVE_RESUME_EPOCHS * WAVE_RESUME_STEPS, WAVE_RESUME_STOP_AFTER)
+    return xps
+
+
+def train_resume_bitwise(dev, label: str, make_cfg, total_steps: int, stop_after: int) -> None:
+    """Phases 10d and 11d: run A trains uninterrupted; run B is stopped by a
+    SIGTERM after step ``stop_after`` is logged, then resumed; under
+    cudnn.deterministic both must end bitwise equal (params, BatchNorm
+    statistics, Adam state, the logged loss strings).  ``make_cfg(run)``
+    gives each run's config."""
     torch.backends.cudnn.deterministic = True
     states, losses = {}, {}
     try:
         for run in ("a", "b"):
-            cfg = wave_config("wave", data_dir, xp_dir=os.path.join(work, f"wave_resume_{run}"),
-                              seed=0, epochs=WAVE_RESUME_EPOCHS,
-                              steps_per_epoch=WAVE_RESUME_STEPS)
+            cfg = make_cfg(run)
             os.makedirs(cfg.xp_dir)
             cfg.save(os.path.join(cfg.xp_dir, "params.json"))
             if run == "b":
-                def stop(msg):  # loss lines lag one boundary: after step 8 is logged
-                    if f"step {WAVE_RESUME_STOP_AFTER}:" in msg:
+                def stop(msg):  # loss lines lag one boundary: after step N is logged
+                    if f"step {stop_after}:" in msg:
                         os.kill(os.getpid(), signal.SIGTERM)
                 stopped = run_training(cfg, device=dev, log_every=1, log_fn=stop)
-                check(stopped.step == WAVE_RESUME_STOP_AFTER + 1, "wave run B did not stop")
+                check(stopped.step == stop_after + 1, f"{label} run B did not stop")
             states[run] = run_training(cfg, device=dev, log_every=1, log_fn=lambda s: None,
                                        resume=run == "b")
             losses[run] = {int(r["step"]): r["loss"] for r in metrics_rows(cfg.xp_dir)}
@@ -1672,13 +1724,12 @@ def wave_train(dev, data_dir: str, work: str, wave_gen: DeviceWaveEq) -> dict:
     differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
     shared = sorted(set(losses["a"]) & set(losses["b"]))
     loss_differ = [s for s in shared if losses["a"][s] != losses["b"][s]]
-    print(f"wave resume on the card ({WAVE_RESUME_EPOCHS} epochs x {WAVE_RESUME_STEPS} steps, "
-          f"SIGTERM after step {WAVE_RESUME_STOP_AFTER}): steps {states['a'].step} and "
-          f"{states['b'].step}; {len(differ)} of {len(ta)} tensors (params, Adam state) differ; "
-          f"{len(loss_differ)} of {len(shared)} shared loss strings differ")
-    check(states["a"].step == states["b"].step == WAVE_RESUME_EPOCHS * WAVE_RESUME_STEPS
-          and not differ and not loss_differ, "the resumed wave run is not bitwise")
-    return xps
+    print(f"{label} resume on the card (cudnn.deterministic, {total_steps} steps, SIGTERM after "
+          f"step {stop_after}): steps {states['a'].step} and {states['b'].step}; {len(differ)} "
+          f"of {len(ta)} tensors (params, BatchNorm statistics, Adam state) differ "
+          f"{differ[:3]}; {len(loss_differ)} of {len(shared)} shared loss strings differ")
+    check(states["a"].step == states["b"].step == total_steps and not differ
+          and not loss_differ, f"the resumed {label} run is not bitwise")
 
 
 def wave_eval_clis(xps: dict, data_dir: str, n_seq: int) -> dict:
@@ -1821,6 +1872,394 @@ def phase10_only(dev=None) -> None:
         wave_phase(dev, work, flops_peak, bw_peak)
 
 
+# -- phase 11: 3D Chairs --------------------------------------------------------
+
+# The reference README's chairs recipe (tests/test_recipes.py:18-19,
+# docs/RESULTS.md:20) at full width: ResNet-18 encoders, the DCGAN decoder, S
+# code 128 (the default), T code 10, a 1-block MLP-ResNet at H 512, 5+10 frames
+# of 64x64x3, B 128; bf16, the train CLI's default precision.
+CHAIRS_RECIPE = ("--data chairs --architecture resnet --decoder_architecture dcgan "
+                 "--code_size_t 10 --gain_resnet 0.71 --lamb_ae 1 --lamb_s 1 --nt_cond 5 "
+                 "--nt_pred 10 --offset 5 --batch_size 128").split()
+CHAIRS_OBJECTS = 200        # gen_synthetic's default: the stand-in of the JAX records
+CHAIRS_EPOCHS, CHAIRS_STEPS = 2, 20
+# The CLI's loss at its last logged step (40) against its first (step 5), a
+# fresh batch every step: it must fall.
+CHAIRS_LOSS_FALL = 1.0
+CHAIRS_RESUME_EPOCHS, CHAIRS_RESUME_STEPS, CHAIRS_RESUME_STOP_AFTER = 2, 6, 8
+CHAIRS_HOST_STEPS = 10
+CHAIRS_EVAL_B = 16          # cli.test_chairs_disentanglement's default batch
+CHAIRS_TEST_SEQS = 30 * 62  # the test split of 200 objects (15%), 62 start views each
+CHAIRS_CPU_BATCHES = 2
+# The encoder, card against CPU, relative to the output's max |.|.  f32 with
+# TF32 off: sums in another order (cuDNN against oneDNN), ~1e-6.  bf16: both
+# round every conv to bf16 at other places; the CPU tests hold the port to
+# flax's bf16 within 2e-2 in eval mode and 0.1 in train mode, where each
+# channel is renormalized by its batch statistics
+# (tests/test_torch_resnet18.py).
+ENC_F32_TOL = 1e-4
+ENC_BF16_TOL = {False: 2e-2, True: 0.1}
+
+
+def chairs_kernel_cases(dev) -> dict:
+    """Phase 11a, in phase 3's cases: the chairs integrator's shapes (code
+    10, H 512, 1 block, orthogonal init at gain 0.71) at the eval's B 16 x 15
+    steps and at B 64 x 100, both planned on the cluster kernel at C 8."""
+    gen = torch.Generator().manual_seed(11)
+    resnet = MLPResnet(10, 1, 512, init_gain=0.71, generator=gen).to(dev)
+    return {f"chairs B{b} code10 H512 1 block {n} steps": (
+        torch.randn(b, 10, generator=gen).to(dev), resnet.flat_params(), n, ("cluster", 8))
+        for b, n in ((CHAIRS_EVAL_B, 15), (B, N_FORECAST))}
+
+
+def chairs_config(data_dir: str, **kw) -> ExperimentConfig:
+    argv = CHAIRS_RECIPE + ["--xp_dir", "", "--data_dir", data_dir]
+    cfg = config_from_args(build_parser().parse_args(argv))
+    return dataclasses.replace(cfg, **kw).validate()
+
+
+def chairs_card_vs_cpu(dev) -> None:
+    """Phase 11b: the ResNet-18 encoder of the seed-0 chairs model, card
+    against CPU, f32 (TF32 off) and bf16, eval and train mode; one f32 chairs
+    train step at B 8, card against CPU."""
+    x = np.random.default_rng(11).random((CHAIRS_EVAL_B, 5, 64, 64, 3), dtype=np.float32)
+    f32_ref = {}
+    for precision in ("f32", "bf16"):
+        cfg = chairs_config("", precision=precision)
+        enc = build_separable_network(cfg, torch.device("cpu"),
+                                      torch.Generator().manual_seed(0)).Es
+        for train in (False, True):
+            with torch.no_grad():
+                cpu = copy.deepcopy(enc).train(train)(torch.from_numpy(x)).float()
+                card = copy.deepcopy(enc).to(dev).train(train)(
+                    torch.from_numpy(x).to(dev)).float().cpu()
+            scale = float(cpu.abs().max())
+            rel = float((card - cpu).abs().max()) / scale
+            mode = "train" if train else "eval"
+            if precision == "f32":
+                f32_ref[train] = cpu
+                tol = ENC_F32_TOL
+                extra = ""
+            else:
+                tol = ENC_BF16_TOL[train]
+                extra = (f"; card and CPU bf16 against CPU f32: "
+                         f"{float((card - f32_ref[train]).abs().max()) / scale:.3e} and "
+                         f"{float((cpu - f32_ref[train]).abs().max()) / scale:.3e}")
+            print(f"ResNet-18 encoder (seed-0 chairs model, B {CHAIRS_EVAL_B}), card against "
+                  f"CPU, {precision}, {mode} mode: max |card - CPU| {rel:.3e} of the output's "
+                  f"max {scale:.4g} (tolerance {tol:g}){extra}")
+            check(bool(torch.isfinite(card).all()) and rel <= tol,
+                  f"ResNet-18 encoder {precision} {mode}, card against CPU")
+    cfg = chairs_config("", precision="f32", batch_size=TRAIN_CHECK_B)
+    seq = np.random.default_rng(12).random((TRAIN_CHECK_B, cfg.nt_cond + cfg.nt_pred, 64, 64, 3),
+                                           dtype=np.float32)
+    train_step_card_vs_cpu(dev, cfg, seq, "the chairs recipe")
+
+
+def chairs_data(dev, data_dir: str) -> DeviceChairs:
+    """Phase 11c: the stand-in corpus through cli.gen_synthetic, the train
+    split on the card, and the same draws gathered on the card and read from
+    the host items."""
+    t = time.perf_counter()
+    cli_gen_synthetic.main(["chairs", "--data_dir", data_dir, "--n_objects", str(CHAIRS_OBJECTS)])
+    gen_s = time.perf_counter() - t
+    root = os.path.join(data_dir, "rendered_chairs")
+    pngs = sum(len(files) for _, _, files in os.walk(root)) - 1  # all_chair_names.mat
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root) for f in files)
+    print(f"cli.gen_synthetic chairs --n_objects {CHAIRS_OBJECTS}: {pngs} PNGs, "
+          f"{size / 1e6:.1f} MB, in {gen_s:.1f} s (Pillow, on the host)")
+    check(pngs == CHAIRS_OBJECTS * 62, "the stand-in corpus's PNG count")
+    cfg = chairs_config(data_dir, seed=0)
+    t = time.perf_counter()
+    gen = registry.make_device_generator(cfg, dev)
+    load_s = time.perf_counter() - t
+    check(isinstance(gen, DeviceChairs) and gen.device.type == dev.type,
+          "the registry's chairs generator")
+    host = registry.make_train_dataset(cfg)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(step_seed(cfg.seed, DATA_SALT, 0))
+    obj, start = gen.draw(rng, cfg.batch_size)
+    card = gen.gather(obj, start).cpu().numpy()
+    items = np.stack([np.concatenate(host[s * gen.n_objects + o])
+                      for o, s in zip(obj.tolist(), start.tolist())])
+    same = card.tobytes() == items.tobytes()
+    ms = cuda_ms(lambda: datagen_batch(gen, cfg, 0, rng), reps=10, inner=5)
+    kernels, busy_ms = device_kernels(lambda: datagen_batch(gen, cfg, 0, rng))
+    print(f"DeviceChairs: the train split ({gen.n_objects} objects x 62 views, {len(gen)} "
+          f"windows of {gen.seq_len}) decoded and uploaded in {load_s:.1f} s, "
+          f"{gen.nbytes / 1e6:.1f} MB uint8 on the card; one B {cfg.batch_size} batch of the "
+          f"same draws, card == host Chairs items bitwise: {same}; datagen_batch {ms:.4f} ms "
+          f"between CUDA events, {kernels:.0f} device kernels busy {busy_ms:.4f} ms (profiler)")
+    check(gen.n_objects == int(CHAIRS_OBJECTS * 0.85) and card.shape == (
+        cfg.batch_size, gen.seq_len, 64, 64, 3), "DeviceChairs size or batch shape")
+    check(same, "chairs windows differ between the card and the host items")
+    return gen
+
+
+def chairs_train(dev, data_dir: str, work: str, gen: DeviceChairs) -> str:
+    """Phase 11d: the recipe through the train CLI, profiled; a mid-epoch
+    resume; the host data path.  Returns the experiment directory."""
+    xp = os.path.join(work, "chairs")
+    argv = ["--xp_dir", xp, "--data_dir", data_dir, *CHAIRS_RECIPE, "--seed", "0",
+            "--epochs", str(CHAIRS_EPOCHS), "--steps_per_epoch", str(CHAIRS_STEPS),
+            "--log_every", "5"]
+    print("train CLI: python -m spatiotemporal_variable_separation_tpu_torch.cli.main "
+          + " ".join(argv))
+    reset_launch_counts()
+    state = cli_main.main(argv)
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    rows = metrics_rows(xp)
+    losses = [(int(r["step"]), float(r["loss"])) for r in rows if not r["samples_per_sec"]]
+    epochs = [float(r["samples_per_sec"]) for r in rows if r["samples_per_sec"]]
+    cfg = ExperimentConfig.from_json_file(os.path.join(xp, "params.json"))
+    print(f"  chairs: steps {state.step}, precision {cfg.precision}, rollout kernel launches "
+          f"while training {launches}; loss by step: "
+          + ", ".join(f"{s}: {v:.4f}" for s, v in losses))
+    check(state.step == CHAIRS_EPOCHS * CHAIRS_STEPS and cfg.precision == "bf16",
+          "chairs: CLI steps or precision")
+    check(launches == {"cluster": 0, "stream": 0}, "chairs: training launched the kernel")
+    check(len(losses) >= 2 and all(np.isfinite(v) for _, v in losses), "chairs: loss rows")
+    print(f"  last/first logged loss {losses[-1][1] / losses[0][1]:.4f} (must be below "
+          f"{CHAIRS_LOSS_FALL:g})")
+    check(losses[-1][1] < CHAIRS_LOSS_FALL * losses[0][1], "chairs: the loss did not fall")
+    for e, sps in enumerate(epochs):
+        print(f"  epoch {e}: {sps:.1f} samples/s = {cfg.batch_size / sps * 1e3:.3f} ms/step"
+              + (" (includes the first step's warm-up)" if e == 0 else ""))
+    check(len(epochs) == CHAIRS_EPOCHS, "chairs: one samples/s row an epoch")
+    step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
+    for _ in range(3):
+        step(state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(CHAIRS_STEPS):
+        step(state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / CHAIRS_STEPS * 1e3
+    print(f"  the fused step alone: {step_ms:.3f} ms/step, "
+          f"{cfg.batch_size / step_ms * 1e3:.1f} samples/s ({CHAIRS_STEPS} steps, fenced)")
+    profile_train_steps(state, lambda s, c, t: step(s), None, None)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, step
+
+    reset_launch_counts()
+    train_resume_bitwise(dev, "chairs", lambda run: chairs_config(
+        data_dir, xp_dir=os.path.join(work, f"chairs_resume_{run}"), seed=0,
+        epochs=CHAIRS_RESUME_EPOCHS, steps_per_epoch=CHAIRS_RESUME_STEPS),
+        CHAIRS_RESUME_EPOCHS * CHAIRS_RESUME_STEPS, CHAIRS_RESUME_STOP_AFTER)
+    host_xp = os.path.join(work, "chairs_host")
+    cli_main.main(["--xp_dir", host_xp, "--data_dir", data_dir, *CHAIRS_RECIPE, "--seed", "0",
+                   "--epochs", "1", "--steps_per_epoch", str(CHAIRS_HOST_STEPS),
+                   "--no-device_datagen", "--num_workers", "4", "--log_every", "5"])
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    host_sps = [float(r["samples_per_sec"]) for r in metrics_rows(host_xp) if r["samples_per_sec"]]
+    print(f"chairs host data path (--no-device_datagen --num_workers 4), 1 epoch x "
+          f"{CHAIRS_HOST_STEPS} steps: {host_sps[0]:.1f} samples/s (device datagen, epoch 2: "
+          f"{epochs[-1]:.1f}); rollout launches in the resume runs and here {launches}")
+    check(len(host_sps) == 1 and host_sps[0] > 0, "chairs host-path samples/s")
+    check(launches == {"cluster": 0, "stream": 0}, "chairs: resume or host path launched")
+    return xp
+
+
+def chairs_eval_cli(dev, xp: str, data_dir: str) -> None:
+    """Phase 11e: cli.test_chairs_disentanglement on the bf16 checkpoint over
+    the whole test split; its resume, bitwise."""
+    argv = ["--xp_dir", xp, "--data_dir", data_dir, "--nt_pred", "10"]
+    print(f"eval CLI (bf16 checkpoint of 11d): python -m {cli_test_chairs.__name__} "
+          + " ".join(argv))
+    reset_launch_counts()
+    t = time.perf_counter()
+    means = cli_test_chairs.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    record = json.load(open(os.path.join(xp, "evals.json")))["chairs_swap_t10"]
+    with np.load(os.path.join(xp, "results_swap.npz")) as z:
+        n_rows = len(z["mse"])
+    print(f"  chairs_swap_t10: {n_rows} sequences in {wall:.1f} s ({n_rows / wall:.1f} "
+          f"sequences/s, test-split load included); means {means}; rollout launches "
+          f"{launches}; evals.json {record}")
+    check(n_rows == CHAIRS_TEST_SEQS, "chairs_swap: the whole test split")
+    check(all(np.isfinite(v) for v in means.values()) and 0 < means["ssim"] <= 1,
+          "chairs_swap: means")
+    check(launches == {"cluster": 0, "stream": 0}, "chairs_swap: the bf16 CLI launched a kernel")
+    check(record["mse"] == means["mse"] and "max_batches" not in record,
+          "chairs_swap: evals.json record")
+    eval_resume(xp, data_dir, eval_chairs.evaluate, "chairs_swap_t10", "results_swap.npz",
+                nt_pred=10, max_batches=RESUME_BATCHES, device=dev)
+
+
+def chairs_eval_f32(dev, data_dir: str, work: str, flops_peak: float, bw_peak: float) -> dict:
+    """Phase 11f: the f32 seed-0 chairs model through evaluate(model_bundle=...)
+    over the whole test split (one cluster launch a batch); the Evaluator on
+    the card against the CPU; the kernel at the protocol's rollout shape
+    (B 16 x 15 steps) in turns with the plain and addmm loops."""
+    cfg = chairs_config(data_dir, precision="f32", seed=0)
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+    xp = os.path.join(work, "chairs_f32")
+    os.makedirs(xp)
+    n_batches = -(-CHAIRS_TEST_SEQS // CHAIRS_EVAL_B)
+    reset_launch_counts()
+    t = time.perf_counter()
+    means = eval_chairs.evaluate(xp, data_dir, cfg.nt_pred, CHAIRS_EVAL_B,
+                                 model_bundle=(model, cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    plan = rollout_plan(CHAIRS_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
+    print(f"evaluate(model_bundle=f32 seed-0 chairs model, full width), {CHAIRS_TEST_SEQS} "
+          f"sequences in {n_batches} batches of {CHAIRS_EVAL_B}: {wall:.1f} s "
+          f"({CHAIRS_TEST_SEQS / wall:.1f} sequences/s); means {means}; rollout plan {plan} "
+          f"({plan.grid // plan.cluster} clusters); launches {launches} (one a batch)")
+    check(all(np.isfinite(v) for v in means.values()), "f32 chairs means")
+    check((plan.variant, plan.cluster, plan.grid // plan.cluster) == ("cluster", 8, 2),
+          f"the chairs B16 plan {plan} is not the cluster kernel at C 8 with 2 clusters")
+    check(launches == {"cluster": n_batches, "stream": 0}, "one cluster launch a chairs batch")
+
+    cache = {}
+    test_set = Chairs(False, data_dir, cfg.nt_cond, seq_len=15, cache_frames=cache)
+    swap_set = eval_chairs.SwapDataset(False, data_dir, cfg.nt_cond, np.random.RandomState(1),
+                                       seq_len=15, cache_frames=cache)
+    card_ev, cpu_ev = Evaluator(model), Evaluator(copy.deepcopy(model).cpu())
+    card, cpu = [], []
+    for b in range(CHAIRS_CPU_BATCHES):
+        sw = eval_batch(swap_set, b)
+        args = (np.stack([it[0] for it in sw]),
+                np.stack([test_set[i][0] for i in range(b * 16, b * 16 + 16)]),
+                np.stack([it[3] for it in sw]))
+        card.append(card_ev.score_swap(*args, nt_skip=cfg.nt_cond)[0])
+        cpu.append(cpu_ev.score_swap(*args, nt_skip=cfg.nt_cond)[0])
+    card = {k: np.concatenate([m[k] for m in card]) for k in card[0]}
+    cpu = {k: np.concatenate([m[k] for m in cpu]) for k in cpu[0]}
+    errs = {"mse": float(np.max(np.abs(card["mse"] - cpu["mse"]) / cpu["mse"])),
+            "psnr": float(np.abs(card["psnr"] - cpu["psnr"]).max()),
+            "ssim": float(np.abs(card["ssim"] - cpu["ssim"]).max())}
+    tols = {"mse": EVAL_MSE_RTOL, "psnr": EVAL_PSNR_ATOL, "ssim": EVAL_SSIM_ATOL}
+    for k in errs:
+        print(f"  Evaluator.score_swap card against CPU, {k}: worst per-sequence difference "
+              f"{errs[k]:.3e} over {len(cpu[k])} sequences (tolerance {tols[k]:g})")
+        check(errs[k] <= tols[k], f"the chairs Evaluator {k}, card against CPU")
+
+    with torch.inference_mode():
+        cond = np.stack([test_set[i][0] for i in range(CHAIRS_EVAL_B)])
+        t0 = model.encode_t(torch.from_numpy(cond).to(dev)).contiguous()
+    params = model.t_resnet.flat_params()
+    n = cfg.nt_cond + cfg.nt_pred
+    ref = mlp_resnet_rollout_reference(t0, params, n)
+    rel = step_rel_err(mlp_resnet_rollout(t0, params, n), ref)
+    batch, code = t0.shape
+    hidden = params[0].shape[1]
+    bufs = (torch.empty(n, batch, code, device=dev), torch.empty(batch, hidden, device=dev),
+            torch.empty(batch, hidden, device=dev), torch.empty(batch, code, device=dev))
+    check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
+          "addmm loop disagrees at the chairs shape")
+    stream = rollout_plan(batch, code, hidden, 1, variant="stream")
+    fns = {"cluster": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
+           "stream": lambda: mlp_resnet_rollout(t0, params, n, plan=stream),
+           "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
+           "addmm": lambda: addmm_loop(t0, params, n, *bufs)}
+    runs = {k: [] for k in fns}
+    for k in ("cluster", "stream", "plain", "addmm", "addmm", "plain", "stream", "cluster"):
+        runs[k].append(cuda_ms(fns[k], reps=10, inner=5))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    ops, nbytes = rollout_cost(batch, code, hidden, 1, n)
+    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    bound = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"  cluster kernel vs plain at the chairs eval's rollout (t0 from the test split): "
+          f"worst step-relative error {rel:.3e} (tolerance {ROLLOUT_REL_TOL:g})")
+    check(rel <= ROLLOUT_REL_TOL, "cluster kernel disagrees with plain at the chairs shape")
+    print(f"  at B {batch} x {n} steps, code {code}, H {hidden}, in turns: cluster kernel "
+          f"{ms['cluster']:.4f} ms ({runs['cluster'][0]:.4f}, {runs['cluster'][1]:.4f}), "
+          f"{ms['cluster'] / (n - 1) * 1e3:.2f} us a block-step; streaming kernel "
+          f"{ms['stream']:.4f} ms; plain loop {ms['plain']:.4f} ms; eager addmm loop "
+          f"{ms['addmm']:.4f} ms; bound {ops / 1e9:.4f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s "
+          f"f32 = {t_ops:.5f} ms, {nbytes / 1e6:.4f} MB at {bw_peak / 1e12:.2f} TB/s = "
+          f"{t_bytes:.5f} ms: {bound:.5f} ms by {bound_by}, {bound / ms['cluster']:.1%} of the "
+          f"cluster kernel")
+    return {"launches": launches, "rel": rel, "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "shapes": f"B {batch}, code {code}, H {hidden}, 1 block, {n} steps"}
+
+
+def chairs_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
+    """Phase 11 (b-f; 11a runs with phase 3's cases): 3D Chairs on the card,
+    in the working directory ``work``.  Returns 11f's kernel figures."""
+    import PIL
+
+    t_phase = time.perf_counter()
+    print(f"phase 11: Pillow {PIL.__version__}")
+    data_dir = os.path.join(work, "chairs_data")
+    chairs_card_vs_cpu(dev)
+    gen = chairs_data(dev, data_dir)
+    xp = chairs_train(dev, data_dir, work, gen)
+    del gen
+    chairs_eval_cli(dev, xp, data_dir)
+    f32 = chairs_eval_f32(dev, data_dir, work, flops_peak, bw_peak)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return f32
+
+
+def phase11_only(dev=None) -> None:
+    """Phase 11 alone, 11a included, a quicker run on the card than the whole
+    script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase11_only()"
+    """
+    dev = torch.device("cuda:0") if dev is None else dev
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {nvidia_smi()}")
+    card = torch.cuda.get_device_name(0)
+    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    _build.build()
+    check_kernel_cases(chairs_kernel_cases(dev))
+    with tempfile.TemporaryDirectory() as work:
+        chairs_phase(dev, work, flops_peak, bw_peak)
+
+
+def check_kernel_cases(cases: dict) -> dict:
+    """Phase 3: each case through the kernel its plan names (the serving and
+    chairs cases also through the streaming kernel, forced), against the
+    plain version; for a cluster plan, the kernel's own shared-memory layout
+    against the plan's.  Returns {(label, variant): (step-relative, abs)}."""
+    cluster_lib = cluster_library()
+    errors = {}
+    for label, (t0, params, n, expected) in cases.items():
+        batch, code = t0.shape
+        hidden, n_blocks = params[0].shape[1], len(params) // 6
+        plans = [rollout_plan(batch, code, hidden, n_blocks)]
+        check((plans[0].variant, plans[0].cluster) == expected,
+              f"plan {plans[0]} is not {expected} [{label}]")
+        if label.startswith(("serving", "chairs")):
+            plans.append(rollout_plan(batch, code, hidden, n_blocks, variant="stream"))
+        ref = mlp_resnet_rollout_reference(t0, params, n)
+        for plan in plans:
+            if plan.variant == "cluster":
+                c_smem = cluster_lib.mlp_resnet_rollout_cluster_smem_bytes(
+                    code, hidden, n_blocks, plan.cluster, plan.rows)
+                active = cluster_lib.mlp_resnet_rollout_cluster_max_active(
+                    batch, code, hidden, n_blocks, plan.cluster, plan.rows)
+                print(f"plan [{label}]: {plan}; the kernel's own layout {c_smem} bytes; "
+                      f"at most {active} such clusters at once")
+                check(c_smem == plan.smem_bytes, "plan and kernel disagree on shared memory")
+                check(active >= 1, f"no cluster of the plan fits [{label}]")
+            else:
+                print(f"plan [{label}]: {plan}")
+            out = mlp_resnet_rollout(t0, params, n, plan=plan)
+            torch.cuda.synchronize()
+            rel = step_rel_err(out, ref)
+            abs_err = float((out - ref).abs().max())
+            errors[label, plan.variant] = (rel, abs_err)
+            print(f"{plan.variant} kernel vs plain [{label}]: worst step-relative error "
+                  f"{rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs error {abs_err:.3e} "
+                  f"at max |t| {float(ref.abs().max()):.3e}")
+            check(tuple(out.shape) == tuple(ref.shape) == (n,) + tuple(t0.shape),
+                  "rollout shape")
+            check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all()),
+                  f"non-finite rollout values [{label}]")
+            check(rel <= ROLLOUT_REL_TOL, f"{plan.variant} kernel disagrees with plain [{label}]")
+    return errors
+
+
 def main() -> None:
     # -- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
@@ -1876,42 +2315,8 @@ def main() -> None:
             MLPResnet(20, 4, 512, generator=gen).to(dev).flat_params(), N_FORECAST,
             ("stream", 1)),
     }
-    cluster_lib = cluster_library()
-    errors = {}
-    for label, (t0, params, n, expected) in cases.items():
-        batch, code = t0.shape
-        hidden, n_blocks = params[0].shape[1], len(params) // 6
-        plans = [rollout_plan(batch, code, hidden, n_blocks)]
-        check((plans[0].variant, plans[0].cluster) == expected,
-              f"plan {plans[0]} is not {expected} [{label}]")
-        if label.startswith("serving"):
-            plans.append(rollout_plan(batch, code, hidden, n_blocks, variant="stream"))
-        ref = mlp_resnet_rollout_reference(t0, params, n)
-        for plan in plans:
-            if plan.variant == "cluster":
-                c_smem = cluster_lib.mlp_resnet_rollout_cluster_smem_bytes(
-                    code, hidden, n_blocks, plan.cluster, plan.rows)
-                active = cluster_lib.mlp_resnet_rollout_cluster_max_active(
-                    batch, code, hidden, n_blocks, plan.cluster, plan.rows)
-                print(f"plan [{label}]: {plan}; the kernel's own layout {c_smem} bytes; "
-                      f"at most {active} such clusters at once")
-                check(c_smem == plan.smem_bytes, "plan and kernel disagree on shared memory")
-                check(active >= 1, f"no cluster of the plan fits [{label}]")
-            else:
-                print(f"plan [{label}]: {plan}")
-            out = mlp_resnet_rollout(t0, params, n, plan=plan)
-            torch.cuda.synchronize()
-            rel = step_rel_err(out, ref)
-            abs_err = float((out - ref).abs().max())
-            errors[label, plan.variant] = (rel, abs_err)
-            print(f"{plan.variant} kernel vs plain [{label}]: worst step-relative error "
-                  f"{rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs error {abs_err:.3e} "
-                  f"at max |t| {float(ref.abs().max()):.3e}")
-            check(tuple(out.shape) == tuple(ref.shape) == (n,) + tuple(t0.shape),
-                  "rollout shape")
-            check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all()),
-                  f"non-finite rollout values [{label}]")
-            check(rel <= ROLLOUT_REL_TOL, f"{plan.variant} kernel disagrees with plain [{label}]")
+    cases.update(chairs_kernel_cases(dev))
+    errors = check_kernel_cases(cases)
     check({v for _, v in errors} == {"cluster", "stream"}, "both variants checked")
 
     # -- 4a. serving: the main path ------------------------------------
@@ -1996,7 +2401,7 @@ def main() -> None:
     ms = {v: float(np.mean(t)) for v, t in runs.items()}
     rows4 = rollout_plan(B, code, hidden, n_blocks, rows=4)
     rows4_ms = cuda_ms(lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST, plan=rows4))
-    rows4_active = cluster_lib.mlp_resnet_rollout_cluster_max_active(
+    rows4_active = cluster_library().mlp_resnet_rollout_cluster_max_active(
         B, code, hidden, n_blocks, rows4.cluster, rows4.rows)
     plain_ms = cuda_ms(lambda: mlp_resnet_rollout_reference(t0_main, params_main, N_FORECAST))
     addmm_ms = cuda_ms(lambda: addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res))
@@ -2042,6 +2447,26 @@ def main() -> None:
                  "wave_bound_by": wave["bound_by"], "wave_max_step_rel_err": wave["rel"],
                  "wave_max_abs_err": wave["abs"]}
 
+    # -- 11. 3D Chairs (11a ran with phase 3's cases) ---------------------------
+    with tempfile.TemporaryDirectory() as work:
+        chairs = chairs_phase(dev, work, flops_peak, bw_peak)
+    chairs_labels = [label for label in cases if label.startswith("chairs")]
+
+    def chairs_keys(v: str) -> dict:
+        rel = max([errors[label, v][0] for label in chairs_labels]
+                  + ([chairs["rel"]] if v == "cluster" else []))
+        return {"launches_chairs": {
+                    "chairs_swap evaluate(model_bundle=f32 seed 0), whole test split (11f)":
+                        chairs["launches"][v],
+                    "chairs_swap CLI on the bf16 checkpoint (11e)": 0,
+                    "chairs training through the CLI, its resume and host path (11d)": 0,
+                    "chairs train step, card against CPU (11b)": 0},
+                "chairs_shapes": chairs["shapes"], "chairs_ms": chairs["ms"][v],
+                "chairs_plain_ms": chairs["ms"]["plain"],
+                "chairs_addmm_loop_ms": chairs["ms"]["addmm"],
+                "chairs_bound_ms": chairs["bound_ms"], "chairs_bound_by": chairs["bound_by"],
+                "chairs_max_step_rel_err": rel}
+
     sources = {"cluster": "mlp_resnet_rollout_cluster.cu", "stream": "mlp_resnet_rollout.cu"}
     paths = {"cluster": ("serving, 1-block integrator", launches["cluster"]),
              "stream": ("serving, 4-block integrator", launches4["stream"])}
@@ -2076,6 +2501,7 @@ def main() -> None:
                           "wave and wave_partial CLIs on the bf16 checkpoints (10e)": 0,
                           "wave and wave_partial training (10d)": 0},
         **(wave_keys if v == "stream" else {}),
+        **chairs_keys(v),
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

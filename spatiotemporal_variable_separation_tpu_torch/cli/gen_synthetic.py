@@ -1,0 +1,42 @@
+"""Synthetic stand-in corpora CLI::
+
+    python -m spatiotemporal_variable_separation_tpu_torch.cli.gen_synthetic chairs --data_dir D
+
+The port's counterpart of the JAX package's ``cli/gen_synthetic.py``, with
+its flags.  It writes the Chairs stand-in (``data/synthetic_corpora.py``);
+the other corpora come with their verticals and raise until then."""
+
+import argparse
+
+# corpus -> the ROADMAP.md Queue 1 item that brings its generator
+LATER = {"taxibj": "item 7+8c (TaxiBJ)", "sst": "item 7+8d (SST)",
+         "mnist": "item 7e/8e (it needs scikit-learn's bundled digits)"}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="varsep synthetic corpora (PyTorch)")
+    p.add_argument("corpus", choices=["taxibj", "sst", "chairs", "mnist"])
+    p.add_argument("--data_dir", type=str, metavar="DIR", required=True)
+    p.add_argument("--seed", type=int, metavar="SEED", default=0)
+    p.add_argument("--days_per_year", type=int, default=120,
+                   help="taxibj: days per h5 year file")
+    p.add_argument("--n_days", type=int, default=1600, help="sst: days/zone")
+    p.add_argument("--size", type=int, default=64,
+                   help="sst: grid edge (64 = reference zones; 256 = "
+                        "full-basin stretch)")
+    p.add_argument("--zones", type=int, nargs="+", default=list(range(1, 30)))
+    p.add_argument("--n_objects", type=int, default=200, help="chairs")
+    args = p.parse_args(argv)
+
+    if args.corpus in LATER:
+        raise NotImplementedError(
+            f"gen_synthetic {args.corpus}: the port generates the chairs stand-in so far; "
+            f"{args.corpus} comes with ROADMAP.md Queue 1, {LATER[args.corpus]}")
+    from spatiotemporal_variable_separation_tpu_torch.data.synthetic_corpora import make_chairs
+
+    make_chairs(args.data_dir, args.n_objects, args.seed)
+    print(f"synthetic {args.corpus} corpus written to {args.data_dir}")
+
+
+if __name__ == "__main__":
+    main()

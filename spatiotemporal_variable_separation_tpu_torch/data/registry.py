@@ -2,9 +2,10 @@
 iterators.
 
 Torch counterpart of the JAX package's ``data/registry.py`` for what the port
-trains on so far: Moving MNIST, made on the card or on the host, and WaveEq
-and WaveEq-100, windows gathered on the card or assembled on the host.  The
-other datasets raise ``NotImplementedError`` until their slice is ported."""
+trains on so far: Moving MNIST, made on the card or on the host; WaveEq and
+WaveEq-100, and 3D Chairs, windows gathered on the card or assembled on the
+host.  TaxiBJ and SST raise ``NotImplementedError`` until their slice is
+ported."""
 
 from __future__ import annotations
 
@@ -17,11 +18,11 @@ from spatiotemporal_variable_separation_tpu_torch.data.loader import Batcher, ba
 
 
 def _refuse(cfg: ExperimentConfig) -> None:
-    if cfg.data not in ("mnist", "wave", "wave_partial"):
+    if cfg.data in ("taxibj", "sst"):
         raise NotImplementedError(
-            f"dataset {cfg.data!r}: the port trains on Moving MNIST and WaveEq so far; "
-            "the TaxiBJ, SST and chairs pipelines come with ROADMAP.md Queue 1, slice 8 "
-            "(remaining datasets)")
+            f"dataset {cfg.data!r}: the port trains on Moving MNIST, WaveEq and Chairs so "
+            "far; TaxiBJ comes with ROADMAP.md Queue 1, slice 8 (item 7+8c) and SST with "
+            "slice 8 (item 7+8d)")
 
 
 def make_train_dataset(cfg: ExperimentConfig):
@@ -32,6 +33,10 @@ def make_train_dataset(cfg: ExperimentConfig):
 
         return MovingMNIST.make_dataset(cfg.data_dir, 64, cfg.nt_cond, seq_len, 4, True,
                                         cfg.n_object, train=True, seed=cfg.seed)
+    if cfg.data == "chairs":
+        from spatiotemporal_variable_separation_tpu_torch.data.chairs import Chairs
+
+        return Chairs(True, cfg.data_dir, cfg.nt_cond, seq_len)
     from spatiotemporal_variable_separation_tpu_torch.data.wave_eq import WaveEq, WaveEqPartial
 
     if cfg.data == "wave":
@@ -42,7 +47,7 @@ def make_train_dataset(cfg: ExperimentConfig):
 
 def make_device_generator(cfg: ExperimentConfig, device=None):
     """The on-device batch generator on ``device`` (``DeviceMovingMNIST``,
-    or ``DeviceWaveEq`` over the train split), or None under
+    or ``DeviceWaveEq`` or ``DeviceChairs`` over the train split), or None under
     ``--no-device_datagen`` or when the data files are missing (the host
     dataset then raises the missing-file error)."""
     _refuse(cfg)
@@ -59,12 +64,18 @@ def make_device_generator(cfg: ExperimentConfig, device=None):
                 device=device)
         except FileNotFoundError:
             return None
-    from spatiotemporal_variable_separation_tpu_torch.data.wave_device import DeviceWaveEq
-
     try:
         host = make_train_dataset(cfg)
     except (FileNotFoundError, OSError):
         return None
+    if cfg.data == "chairs":
+        from spatiotemporal_variable_separation_tpu_torch.data.chairs_device import (
+            DeviceChairs,
+        )
+
+        return DeviceChairs.from_host_dataset(host, device=device)
+    from spatiotemporal_variable_separation_tpu_torch.data.wave_device import DeviceWaveEq
+
     if cfg.data == "wave":
         return DeviceWaveEq.from_host_dataset(host, device=device)
     # partial observations: the fixed pixel subsample is applied once, here.
@@ -84,7 +95,7 @@ def epoch_iterator(cfg: ExperimentConfig, dataset, epoch: int) -> Iterator:
     ``--steps_per_epoch``, the LR schedule and resume accounting agree.
 
     Datasets with a vectorized ``generate_batch`` (Moving MNIST) use it on a
-    background thread; map-style datasets (WaveEq) go through the shuffled
+    background thread; map-style datasets (WaveEq, Chairs) go through the shuffled
     Batcher."""
     n_steps = steps_per_epoch(cfg, dataset)
     if hasattr(dataset, "generate_batch"):

@@ -2,8 +2,9 @@
 
 Torch counterpart of the JAX package's ``models/factory.py:35-61, 121-149``
 (reference ``main.py:116-140``) for what the port runs so far: the DCGAN-64
-and MLP encoders and decoders (in any pairing the config allows) and the
-MLP-ResNet integrator, under the three precision policies.  Every weight is
+and MLP encoders and decoders (in any pairing the config allows), the
+ResNet-18 encoder, and the MLP-ResNet integrator, under the three precision
+policies.  Every weight is
 drawn from the caller's ``torch.Generator`` on the CPU, so one seed builds
 the same model on every machine, and the model is then moved to
 ``device``.  Parameters are f32 under every policy.
@@ -15,17 +16,23 @@ import math
 
 import torch
 
-from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.core.config import (
+    DECODER_ARCH_TYPES,
+    ConfigError,
+    ExperimentConfig,
+)
 from spatiotemporal_variable_separation_tpu_torch.models.conv import (
     DCGAN64Decoder,
     DCGAN64Encoder,
 )
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
 from spatiotemporal_variable_separation_tpu_torch.models.mlp_encdec import MLPDecoder, MLPEncoder
+from spatiotemporal_variable_separation_tpu_torch.models.resnet18 import ResNet18
 from spatiotemporal_variable_separation_tpu_torch.models.separable import SeparableNetwork
 
 # The encoder and decoder families the port builds so far.
-PORTED = ("dcgan", "mlp")
+PORTED_ENCODERS = ("dcgan", "mlp", "resnet")
+PORTED_DECODERS = ("dcgan", "mlp")
 
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -52,6 +59,8 @@ def _encoder(cfg: ExperimentConfig, nh: int, **kw) -> torch.nn.Module:
     if cfg.architecture == "dcgan":
         return DCGAN64Encoder(cfg.nt_cond * cfg.channels, nh, cfg.enc_hidden_size,
                               bn_dtype=bn_io_dtype(cfg), **kw)
+    if cfg.architecture == "resnet":
+        return ResNet18(cfg.nt_cond * cfg.channels, nh, bn_dtype=bn_io_dtype(cfg), **kw)
     return MLPEncoder(cfg.nt_cond * math.prod(cfg.frame_shape), nh, cfg.enc_hidden_size,
                       cfg.enc_n_layers, **kw)
 
@@ -71,16 +80,29 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     """Assemble the forecaster from a config; ``generator`` must be a CPU
     generator (weights are drawn on the CPU, then moved)."""
     cfg = cfg.validate()
-    for kind, arch in (("encoder", cfg.architecture), ("decoder", cfg.decoder_arch)):
-        if arch not in PORTED:
-            raise NotImplementedError(
-                f"{kind} architecture {arch!r}: the port builds the dcgan and mlp encoders "
-                "and decoders so far; vgg, resnet18, encoderSST/decoderSST and the "
-                "convolutional integrator come with ROADMAP.md Queue 1, slice 7")
+    if cfg.decoder_arch not in DECODER_ARCH_TYPES:  # e.g. resnet with no decoder named
+        raise ValueError(f"unknown decoder architecture {cfg.decoder_arch!r}")
+    missing = []
+    if cfg.architecture not in PORTED_ENCODERS:
+        missing.append(f"encoder {cfg.architecture!r}")
+    if cfg.decoder_arch not in PORTED_DECODERS:
+        missing.append(f"decoder {cfg.decoder_arch!r}")
+    if missing:
+        raise NotImplementedError(
+            f"{' and '.join(missing)}: the port builds the dcgan, mlp and resnet encoders and "
+            "the dcgan and mlp decoders so far; vgg comes with ROADMAP.md Queue 1, slice 7 "
+            "(item 7+8c), encoderSST/decoderSST and the convolutional integrator with "
+            "slice 7 (item 7+8d)")
     if cfg.no_s:
         raise NotImplementedError(
             "--no_s: the constant S module (ConstantS) is not ported yet; it comes with "
-            "ROADMAP.md Queue 1, slice 7")
+            "ROADMAP.md Queue 1, slice 7 (item 7e)")
+    if cfg.architecture == "resnet" and cfg.skipco:
+        # The JAX package says its factory forbids this (models/resnet18.py:8-10)
+        # but its config validation does not: the encoder returns a bare code
+        # where the decoder expects (code, skips).
+        raise ConfigError("--skipco with the resnet encoder: ResNet18 returns no skip maps "
+                          "(JAX models/resnet18.py:8-10, reference conv.py:546-564)")
     g = generator
     kw = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g,
               dtype=compute_dtype(cfg.precision))

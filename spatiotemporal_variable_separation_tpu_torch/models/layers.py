@@ -6,7 +6,9 @@ Torch counterparts of the JAX package's ``models/layers.py`` (reference
 * ``ConvBlock`` = Conv2d/ConvTranspose2d -> optional BatchNorm -> activation,
 * ``LinBlock``  = pre-activation Linear,
 * ``MLP``       = stack of LinBlocks (first layer without activation),
-* ``BatchNorm`` = BatchNorm2d with flax's train-mode arithmetic.
+* ``BatchNorm`` = BatchNorm2d with flax's train-mode arithmetic,
+* ``linear``, ``conv2d`` = a layer applied in a compute type, and
+  ``max_pool_3x3_s2_p1`` (the ResNet-18 stem's pool).
 
 Tensors are NCHW inside the port.  Sub-modules carry the flax names
 (``conv``, ``bn``, ``linear``, ``block_{i}``) and are registered in flax call
@@ -169,6 +171,18 @@ class MLP(nn.Sequential):
                 init_type=init_type, init_gain=init_gain, generator=generator,
                 dtype=dtype)
         super().__init__(blocks)
+
+
+def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` (flax ``Conv(dtype=...)``)."""
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                    stride=layer.stride, padding=layer.padding)
+
+
+def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
+    """torch ``MaxPool2d(3, 2, 1)`` on NCHW; its implicit padding is -inf, as
+    flax's ``max_pool`` pads (JAX ``layers.py:171-173``)."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
 
 
 def merge_time(x: torch.Tensor) -> torch.Tensor:

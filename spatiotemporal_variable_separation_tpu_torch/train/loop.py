@@ -2,8 +2,8 @@
 
 Torch counterpart of the JAX package's ``train/loop.py``, on one device:
 * each step's batch is made on the card inside the step
-  (``make_fused_datagen_step``: Moving MNIST rendered, or WaveEq windows
-  gathered from the train split uploaded once) unless
+  (``make_fused_datagen_step``: Moving MNIST rendered, or WaveEq or Chairs
+  windows gathered from the train split uploaded once) unless
   ``--no-device_datagen`` asks for the host pipeline (``epoch_iterator``
   on a background thread, then ``prefetch_to_device``);
 * losses are logged (the reference shows a progress bar only), lagged by

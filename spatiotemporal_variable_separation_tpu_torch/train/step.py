@@ -36,8 +36,8 @@ T_SALT, DATA_SALT = 1, 2_000_003
 
 
 class DeviceGenerator(Protocol):
-    """A batch generator on one device: ``data.mnist_device.DeviceMovingMNIST``
-    or ``data.wave_device.DeviceWaveEq``."""
+    """A batch generator on one device: ``data.mnist_device.DeviceMovingMNIST``,
+    ``data.wave_device.DeviceWaveEq`` or ``data.chairs_device.DeviceChairs``."""
 
     device: torch.device
 

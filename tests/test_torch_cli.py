@@ -126,8 +126,8 @@ def test_main_trains_checkpoints_and_resumes_on_the_cpu(tmp_path):
     with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(argv + ["--epochs", "1", "--monitor_stability"])
     with pytest.raises(NotImplementedError, match="slice 8"):
-        tmain.main(["--xp_dir", str(tmp_path / "w"), "--data_dir", str(data), "--data", "chairs",
-                    "--platform", "cpu"])
+        tmain.main(["--xp_dir", str(tmp_path / "w"), "--data_dir", str(data), "--data", "taxibj",
+                    "--architecture", "vgg", "--platform", "cpu"])
 
 
 def test_cli_runs_with_jax_absent(tmp_path):

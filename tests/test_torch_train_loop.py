@@ -207,7 +207,8 @@ def test_refusals(tmp_path, mnist_dir, monkeypatch):
     with pytest.raises(NotImplementedError, match="slice 10"):
         run_training(cfg, device="cpu", monitor_stability=True)
     with pytest.raises(NotImplementedError, match="slice 8"):
-        run_training(ExperimentConfig(**{**SMALL, "data": "chairs"}), device="cpu")
+        run_training(ExperimentConfig(**{**SMALL, "data": "taxibj", "architecture": "vgg"}),
+                     device="cpu")
     for kw in ({"num_devices": 2}, {"model_parallel": 2, "num_devices": 2}):
         with pytest.raises(NotImplementedError, match="slice 9"):
             run_training(ExperimentConfig(**{**SMALL, **kw}), device="cpu")

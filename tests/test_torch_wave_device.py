@@ -88,11 +88,11 @@ def test_registry_branches_match_jax(wave_dir, monkeypatch):
     assert registry.make_device_generator(missing, device="cpu") is None
     with pytest.raises(FileNotFoundError):
         registry.make_train_dataset(missing)
-    chairs = ExperimentConfig(**{**SMALL, "architecture": "dcgan", "mixing": "concat"},
-                              data="chairs", data_dir=wave_dir)
+    taxibj = ExperimentConfig(**{**SMALL, "architecture": "vgg", "mixing": "concat"},
+                              data="taxibj", data_dir=wave_dir)
     for fn in (registry.make_train_dataset, registry.make_device_generator):
         with pytest.raises(NotImplementedError, match="slice 8"):
-            fn(chairs)
+            fn(taxibj)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         registry.make_device_generator(ExperimentConfig(**SMALL, data="wave",
