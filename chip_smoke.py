@@ -4,7 +4,8 @@ Moving-MNIST DCGAN forecaster through them, trains it at the flagship
 config of ``bench.py`` and scores it with both Moving MNIST protocols; then
 generates WaveEq on the card, trains both WaveEq recipes and scores them;
 then writes the 3D Chairs stand-in corpus, trains the chairs recipe and
-scores its content swap.
+scores its content swap; then makes the TaxiBJ and SST stand-ins in memory,
+trains both recipes and scores them.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -57,7 +58,7 @@ result line is printed):
    that falls, params and BatchNorm statistics that move, and no rollout
    launch; then the trained weights, served under ``mixed`` (bf16 convs,
    the f32 rollout), answer one request through the cluster kernel (1 launch).
-   Timing: 5 warm-up and 50 timed steps, bf16 and f32 with TF32 off,
+   Timing: 3 warm-up and 20 timed steps, bf16 and f32 with TF32 off,
    ms/step and samples/s; one step split by CUDA events into forward,
    backward and optimizer; a torch.profiler trace (top device kernels, the
    device's idle share); the step's FLOPs counted by
@@ -78,14 +79,14 @@ result line is printed):
       after step 8 and resumed; params, BatchNorm statistics, Adam moments
       and the logged loss strings bitwise equal;
    d. the host path (``--no-device_datagen --num_workers 4``), one epoch of
-      10 steps, samples/s beside 8b's, and the host generator's time a batch;
+      4 steps, samples/s beside 8b's, and the host generator's time a batch;
    e. ``Forecaster.from_xp_dir(xp, 64, 100, precision="mixed")`` on 8b's
       checkpoint answers a 64-window request through the cluster kernel (1
       launch), within the frame tolerances of a Forecaster over 8b's model;
-9. the Moving MNIST evaluation, on 10,000 synthetic test digits written as
+9. the Moving MNIST evaluation, on 1,000 synthetic test digits written as
    idx files beside 8's training digits, and the test set ``make_test_set``
-   makes of them (5,000 sequences of 100 frames, the reference protocol's
-   count), at the eval batch of 16:
+   makes of them (500 sequences of 100 frames; the reference protocol has
+   5,000), at the eval batch of 16:
    a. SSIM on the card with TF32 at torch's global default, 240 frames of
       64x64x1 and 60 of 64x64x3, against the CPU in f32 and in f64 (a plain
       f64 SSIM written out here); every value at most 1.  Beside it, the same
@@ -98,7 +99,7 @@ result line is printed):
       its plain version at B 16 x 100 steps;
    c. the protocols through their CLIs, in-process, on 8b's bf16 checkpoint:
       ``cli.test_mnist`` and ``cli.test_mnist_disentanglement`` at nt_pred 10
-      on all 5,000 sequences, ``cli.test_mnist`` at nt_pred 95 cut to
+      on all 500 sequences, ``cli.test_mnist`` at nt_pred 95 cut to
       ``T95_MAX_BATCHES`` batches, archives capped at ``ARCHIVE_CAP``: finite
       means, SSIM in (0, 1], the ``evals.json`` records, and 0 rollout
       launches (the bf16 path loops its integrator).  Then the same
@@ -114,7 +115,7 @@ result line is printed):
       the t10 eval's rollout shapes (B 16 x 15 steps).
 10. WaveEq and WaveEq-100 (the recipes of ``tests/test_recipes.py:28-36``,
     full width), in a temporary directory:
-    a. ``simulate_wave`` on the card, 4 sequences x 300 steps of 64x64, both
+    a. ``simulate_wave`` on the card, 2 sequences x 300 steps of 64x64, both
        tableaus, against the port on the CPU and against an f64 numpy RK4,
        the error relative to each frame's max;
     b. ``generate_dataset`` on the card at the canonical size (300 sequences
@@ -133,17 +134,17 @@ result line is printed):
        ``evals.json`` record, 0 launches;
     f. ``eval.wave.evaluate(model_bundle=...)`` on the f32 seed-0 WaveEq
        model: one streaming launch a batch and no cluster launch (no cluster
-       holds 3 blocks at H 512); per-sequence MSE of the first 4 batches,
+       holds 3 blocks at H 512); per-sequence MSE of the first 2 batches,
        card against CPU; the streaming kernel against plain at B 256 x 45
        steps x 3 blocks, timed in turns with the plain and ``addmm`` loops,
        beside the bound.
 11. 3D Chairs (the recipe of ``tests/test_recipes.py:18-19``, full width), in
     a temporary directory:
     a. the kernel at the chairs shapes, with phase 3's cases;
-    b. the ResNet-18 encoder of the seed-0 model, card against CPU, f32 (TF32
-       off) and bf16, eval and train mode; one f32 chairs train step at B 8,
+    b. the ResNet-18 encoder and DCGAN decoder of the seed-0 model, card
+       against CPU, f32 (TF32 off) and bf16, eval and train mode; one f32 chairs train step at B 8,
        card against CPU, with phase 6's tolerances and 0 launches;
-    c. ``cli.gen_synthetic chairs`` (200 objects, 12,400 PNGs); the train
+    c. ``cli.gen_synthetic chairs --n_objects 100`` (6,200 PNGs); the train
        split on the card (``DeviceChairs``, uint8) and a B 128 batch of the
        same draws against the host ``Chairs`` items, bitwise; ms a batch;
     d. the train CLI, bf16 B 128, 2 epochs x 20 steps: the loss falls, 0
@@ -151,19 +152,64 @@ result line is printed):
        stopped by SIGTERM and resumed, bitwise under ``cudnn.deterministic``;
        the host data path;
     e. ``cli.test_chairs_disentanglement --nt_pred 10`` on the bf16
-       checkpoint over the whole test split (1,860 sequences), 0 launches,
+       checkpoint over the whole test split (930 sequences), 0 launches,
        and its resume, bitwise;
     f. ``eval.chairs_swap.evaluate(model_bundle=...)`` on the f32 seed-0
        model: one cluster launch a batch; the Evaluator card against CPU on
        2 batches; the kernel at B 16 x 15 steps timed in turns with the
        streaming kernel, the plain and ``addmm`` loops, beside the bound.
+12. TaxiBJ (the recipe of ``tests/test_recipes.py:22-25``, full width: VGG
+    at nf 64, S 128, T 20, a 1-block MLP-ResNet at H 512, 4 + 4 frames of
+    32x32x2, offset 4, B 100), in a temporary directory.  The card machine
+    has no h5py, so the stand-in (``taxibj_years``, 4 years x 120 days) is
+    made in memory and goes through ``TaxiBJ.from_arrays``, the pipeline
+    the loader runs on the reference's files; the file path (loader, cache,
+    CLIs) is held by the CPU tests:
+    a. the VGG encoder and decoder of the seed-0 model, card against CPU, f32
+       (TF32 off) and bf16, eval and train mode; one f32 train step at B 8,
+       card against CPU, with phase 6's tolerances and 0 launches;
+    b. the stand-in's and the split's seconds; ``DeviceItems`` over the
+       train split (1.42 GB) and a B 100 batch of the same draws against the
+       host items, bitwise; ms a batch;
+    c. ``run_training(device_gen=...)`` at the recipe, bf16, 2 epochs x 20
+       steps: the loss falls, 0 launches, samples/s, the fused step's ms and
+       a profiler trace; a run stopped by SIGTERM after step 8 and resumed,
+       bitwise under ``cudnn.deterministic``;
+    d. ``eval.taxibj.evaluate`` on the bf16 checkpoint over the whole test
+       split (1,344 sequences, 11 batches of 128), the ``evals.json`` record
+       the CLI writes, 0 launches;
+    e. ``evaluate(model_bundle=...)`` on the f32 seed-0 model: one cluster
+       launch a batch (C 8 x 16 clusters, one more than fit at once); frame
+       MSEs card against CPU on 2 batches; the kernel at B 128 x 8 steps
+       against plain, timed in turns with the streaming kernel, the plain
+       and ``addmm`` loops, beside the bound.
+13. SST (the recipe of ``tests/test_recipes.py:26-29``, full width:
+    ``EncoderSST``, ``DecoderSSTSkip``, 16x16 S and T maps of 196 and 64
+    channels, a 2-block ``ConvResnet`` at nf 512, 4 + 6 frames of 64x64,
+    B 128), in the same way (``sst_zone_arrays``, 29 zones x 1,600 days,
+    through ``SST(arrays=...)``):
+    a. ``EncoderSST``, ``DecoderSSTSkip`` and ``ConvResnet`` of the seed-0
+       model, card against CPU, as 12a; one f32 train step at B 8; one bf16
+       forward at ``--zone_size 256``;
+    b. as 12b with ``DeviceZoneWindows`` (0.76 GB) and a B 128 batch;
+    c. as 12c;
+    d. ``eval.sst.evaluate`` on the bf16 checkpoint over zones 17-20 (1,220
+       sequences, B 64): finite MSEs, SSIM in (0, 1], the ``evals.json``
+       record, 0 launches;
+    e. ``evaluate(model_bundle=...)`` on the f32 seed-0 model: 0 launches of
+       either kernel (``ConvResnet`` loops its module); per-sequence MSE and
+       SSIM card against CPU on 2 batches of 16, and with
+       ``reference_broadcast`` on 1.
+Each phase prints its seconds on a line of its own.
 
 The line before the last is a JSON object with one entry per kernel (its
 serving-path launches, its launches on each eval path in ``launches_eval``,
-on the WaveEq paths in ``launches_wave`` and on the chairs paths in
-``launches_chairs``, with its B 16 plan and times, the streaming kernel's
-``wave_*`` times at the WaveEq shape, and both kernels' ``chairs_*`` times
-at the chairs shape); the last is ``{"ok": true, "device": {...}}``.
+on the WaveEq paths in ``launches_wave``, on the chairs paths in
+``launches_chairs``, on the TaxiBJ paths in ``launches_taxibj`` and on the
+SST paths in ``launches_sst``, with its B 16 plan and times, the streaming
+kernel's ``wave_*`` times at the WaveEq shape, both kernels' ``chairs_*``
+times at the chairs shape, and the cluster kernel's ``taxibj_*`` times at
+B 128 x 8); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -198,7 +244,7 @@ from spatiotemporal_variable_separation_tpu_torch.cli import (
 )
 from spatiotemporal_variable_separation_tpu_torch.cli import test_wave as cli_test_wave
 from spatiotemporal_variable_separation_tpu_torch.cli.options import build_parser, config_from_args
-from spatiotemporal_variable_separation_tpu_torch.data import registry, wave_eq
+from spatiotemporal_variable_separation_tpu_torch.data import registry, synthetic_corpora, wave_eq
 from spatiotemporal_variable_separation_tpu_torch.data.chairs import Chairs
 from spatiotemporal_variable_separation_tpu_torch.data.chairs_device import DeviceChairs
 from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
@@ -212,11 +258,17 @@ from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import (
     make_test_set,
     synthetic_digits,
 )
+from spatiotemporal_variable_separation_tpu_torch.data.sst import SST
+from spatiotemporal_variable_separation_tpu_torch.data.sst_device import DeviceZoneWindows
+from spatiotemporal_variable_separation_tpu_torch.data.taxibj import TaxiBJ
+from spatiotemporal_variable_separation_tpu_torch.data.taxibj_device import DeviceItems
 from spatiotemporal_variable_separation_tpu_torch.data.wave_device import DeviceWaveEq
 from spatiotemporal_variable_separation_tpu_torch.eval import chairs_swap as eval_chairs
 from spatiotemporal_variable_separation_tpu_torch.eval import common as eval_common
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist as eval_mnist
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist_swap as eval_swap
+from spatiotemporal_variable_separation_tpu_torch.eval import sst as eval_sst
+from spatiotemporal_variable_separation_tpu_torch.eval import taxibj as eval_taxibj
 from spatiotemporal_variable_separation_tpu_torch.eval import wave as eval_wave
 from spatiotemporal_variable_separation_tpu_torch.eval.common import (
     Evaluator,
@@ -297,7 +349,7 @@ FLAGSHIP = dict(data="mnist", architecture="dcgan", code_size_s=128, code_size_t
                 enc_hidden_size=64, dec_hidden_size=64, res_hidden_size=512, n_blocks=1,
                 nt_cond=5, nt_pred=10, offset=5, batch_size=128, precision="bf16", seed=0,
                 fused_loss=True)  # bench.py:72-80
-TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 5, 50
+TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 3, 20
 # The loss after TRAIN_STEPS steps on one fixed batch, against the first
 # step's: 0.0306 measured on an H100 (129.7 -> 3.97); 0.1 leaves 3x room
 # for cuDNN's run-to-run atomics and the bf16 roundings.
@@ -306,19 +358,20 @@ LOSS_FALL = 0.1
 # -- phase 8: the train entry point ---------------------------------------
 N_DIGITS = 60_000  # synthetic stand-ins for MNIST's 60,000 training digits
 CLI_EPOCHS, CLI_STEPS = 2, 20
+TURN_STEPS = 10  # fused datagen against a fixed batch, steps a turn
 RESUME_EPOCHS, RESUME_STEPS, RESUME_STOP_AFTER = 2, 6, 8
-HOST_STEPS = 10
+HOST_STEPS = 4
 # The CLI's loss at its last logged step (40) against its first (step 5),
 # a fresh batch every step: 0.112 measured on an H100 (40.49 -> 4.55); 0.3
 # leaves ~2.7x room for cuDNN's run-to-run atomics and the bf16 roundings.
 CLI_LOSS_FALL = 0.3
 
 # -- phase 9: evaluation ---------------------------------------------------
-N_TEST_DIGITS = 10_000  # synthetic stand-ins for MNIST's test split: 5,000 sequences
+N_TEST_DIGITS = 1_000   # synthetic test digits: 500 sequences (the reference has 5,000)
 TEST_SEQ_LEN = 100      # make_test_set's default, the reference's
 EVAL_B = 16             # the eval CLIs' default batch
 ARCHIVE_CAP = 256       # the CLIs' archives: the first 16 batches
-T95_MAX_BATCHES = 32    # the 95-frame protocol on the checkpoint: 512 of 5,000 sequences
+T95_MAX_BATCHES = 16    # the 95-frame protocol on the checkpoint: 256 of 500 sequences
 # The f32 bundle's runs, cut to these batches; the first 4 batches archived.
 BUNDLE_MAX_BATCHES = {"mnist_t10": 20, "mnist_swap_t10": 10, "mnist_t95": 8}
 BUNDLE_ARCHIVE_CAP = 64
@@ -584,9 +637,10 @@ def split_train_step(state, cfg, cond, target, reps: int = 10) -> dict:
     return {k: float(np.median(v)) for k, v in parts.items()}
 
 
-def profile_train_steps(state, step, cond, target, n: int = 3) -> None:
+def profile_train_steps(state, step, cond, target, n: int = 3) -> dict:
     """A torch.profiler trace of ``n`` train steps: the busiest device
-    kernels and the device's busy share of the wall time."""
+    kernels and the device's busy share of the wall time.  Returns a step's
+    wall and busy ms, its idle share and its device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -610,6 +664,8 @@ def profile_train_steps(state, step, cond, target, n: int = 3) -> None:
     for e in kernels[:12]:
         print(f"    kernel {e.self_device_time_total / 1e3 / n:9.3f} ms a step "
               f"({e.self_device_time_total / 1e3 / busy_ms:.1%}) x{e.count // n:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms / n, "busy_ms": busy_ms / n, "idle": 1 - busy_ms / wall_ms,
+            "kernels": launches / n}
 
 
 def step_flops(state, cfg, cond, target) -> float:
@@ -882,7 +938,7 @@ def train_cli(dev, data_dir: str, work: str, bf16_ms: float):
 
 def datagen_turns(dev, data_dir: str) -> None:
     """The fused datagen step against the same step on one fixed batch made
-    by it, CLI_STEPS steps at a time in turns (fixed, fused, fused, fixed),
+    by it, TURN_STEPS steps at a time in turns (fixed, fused, fused, fixed),
     each between two synchronisations."""
     cfg = ExperimentConfig(**FLAGSHIP)
     gen = DeviceMovingMNIST.from_data_dir(data_dir, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred,
@@ -900,12 +956,12 @@ def datagen_turns(dev, data_dir: str) -> None:
     for k in ("fixed", "fused", "fused", "fixed"):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for _ in range(CLI_STEPS):
+        for _ in range(TURN_STEPS):
             runs[k]()
         torch.cuda.synchronize()
-        times[k].append((time.perf_counter() - t) / CLI_STEPS * 1e3)
+        times[k].append((time.perf_counter() - t) / TURN_STEPS * 1e3)
     ms = {k: float(np.mean(v)) for k, v in times.items()}
-    print(f"  in turns, {CLI_STEPS} steps each: fixed batch {ms['fixed']:.3f} ms/step "
+    print(f"  in turns, {TURN_STEPS} steps each: fixed batch {ms['fixed']:.3f} ms/step "
           f"({times['fixed'][0]:.3f}, {times['fixed'][1]:.3f}), fused datagen "
           f"{ms['fused']:.3f} ms/step ({times['fused'][0]:.3f}, {times['fused'][1]:.3f}); "
           f"{cfg.batch_size / ms['fixed'] * 1e3:.1f} and {cfg.batch_size / ms['fused'] * 1e3:.1f} "
@@ -1480,7 +1536,7 @@ WAVE_RECIPES = {
                      "--dec_hidden_size 150 --lamb_ae 1").split(),
 }
 WAVE_SIZE, WAVE_SEQ_LEN, WAVE_SEED = 300, 300, 42  # gen_wave's defaults: the canonical data
-WAVE_SIM_SEQS = 4
+WAVE_SIM_SEQS = 2
 # simulate_wave, max |error| of a frame over its max |w|.  Card against the
 # port on the CPU: the same elementwise ATen ops in the same order, no
 # reduction, so only the last bits of exp (and a contraction inside one
@@ -1497,7 +1553,7 @@ WAVE_EPOCHS, WAVE_STEPS = 2, 20
 WAVE_LOSS_FALL = 1.0
 WAVE_RESUME_EPOCHS, WAVE_RESUME_STEPS, WAVE_RESUME_STOP_AFTER = 2, 6, 8
 WAVE_EVAL_B = 256           # cli.test_wave's default batch
-WAVE_CPU_BATCHES = 4        # the f32 eval on the CPU, against the card: 1,024 windows
+WAVE_CPU_BATCHES = 2        # the f32 eval on the CPU, against the card: 512 windows
 WAVE_ROLLOUT_STEPS = 45     # nt_cond 5 + the protocol's 40 (offset 5)
 # Per-sequence MSE@t+40 of the f32 seed-0 model, card against CPU, TF32 off:
 # the limit phase 9b holds the Evaluator to.
@@ -1696,12 +1752,14 @@ def wave_train(dev, data_dir: str, work: str, wave_gen: DeviceWaveEq) -> dict:
     return xps
 
 
-def train_resume_bitwise(dev, label: str, make_cfg, total_steps: int, stop_after: int) -> None:
-    """Phases 10d and 11d: run A trains uninterrupted; run B is stopped by a
-    SIGTERM after step ``stop_after`` is logged, then resumed; under
-    cudnn.deterministic both must end bitwise equal (params, BatchNorm
+def train_resume_bitwise(dev, label: str, make_cfg, total_steps: int, stop_after: int,
+                         device_gen=None) -> None:
+    """Phases 10d, 11d, 12c and 13c: run A trains uninterrupted; run B is
+    stopped by a SIGTERM after step ``stop_after`` is logged, then resumed;
+    under cudnn.deterministic both must end bitwise equal (params, BatchNorm
     statistics, Adam state, the logged loss strings).  ``make_cfg(run)``
-    gives each run's config."""
+    gives each run's config; ``device_gen``, a sampler to train from in
+    place of the registry's."""
     torch.backends.cudnn.deterministic = True
     states, losses = {}, {}
     try:
@@ -1713,10 +1771,11 @@ def train_resume_bitwise(dev, label: str, make_cfg, total_steps: int, stop_after
                 def stop(msg):  # loss lines lag one boundary: after step N is logged
                     if f"step {stop_after}:" in msg:
                         os.kill(os.getpid(), signal.SIGTERM)
-                stopped = run_training(cfg, device=dev, log_every=1, log_fn=stop)
+                stopped = run_training(cfg, device=dev, log_every=1, log_fn=stop,
+                                       device_gen=device_gen)
                 check(stopped.step == stop_after + 1, f"{label} run B did not stop")
             states[run] = run_training(cfg, device=dev, log_every=1, log_fn=lambda s: None,
-                                       resume=run == "b")
+                                       resume=run == "b", device_gen=device_gen)
             losses[run] = {int(r["step"]): r["loss"] for r in metrics_rows(cfg.xp_dir)}
     finally:
         torch.backends.cudnn.deterministic = False
@@ -1881,22 +1940,22 @@ def phase10_only(dev=None) -> None:
 CHAIRS_RECIPE = ("--data chairs --architecture resnet --decoder_architecture dcgan "
                  "--code_size_t 10 --gain_resnet 0.71 --lamb_ae 1 --lamb_s 1 --nt_cond 5 "
                  "--nt_pred 10 --offset 5 --batch_size 128").split()
-CHAIRS_OBJECTS = 200        # gen_synthetic's default: the stand-in of the JAX records
+CHAIRS_OBJECTS = 100        # half gen_synthetic's default (200, the JAX records' stand-in)
 CHAIRS_EPOCHS, CHAIRS_STEPS = 2, 20
 # The CLI's loss at its last logged step (40) against its first (step 5), a
 # fresh batch every step: it must fall.
 CHAIRS_LOSS_FALL = 1.0
 CHAIRS_RESUME_EPOCHS, CHAIRS_RESUME_STEPS, CHAIRS_RESUME_STOP_AFTER = 2, 6, 8
-CHAIRS_HOST_STEPS = 10
+CHAIRS_HOST_STEPS = 4
 CHAIRS_EVAL_B = 16          # cli.test_chairs_disentanglement's default batch
-CHAIRS_TEST_SEQS = 30 * 62  # the test split of 200 objects (15%), 62 start views each
+CHAIRS_TEST_SEQS = 15 * 62  # the test split of 100 objects (15%), 62 start views each
 CHAIRS_CPU_BATCHES = 2
-# The encoder, card against CPU, relative to the output's max |.|.  f32 with
-# TF32 off: sums in another order (cuDNN against oneDNN), ~1e-6.  bf16: both
-# round every conv to bf16 at other places; the CPU tests hold the port to
-# flax's bf16 within 2e-2 in eval mode and 0.1 in train mode, where each
-# channel is renormalized by its batch statistics
-# (tests/test_torch_resnet18.py).
+# An encoder, decoder or integrator, card against CPU, relative to the
+# output's max |.| (phases 11b, 12a, 13a).  f32 with TF32 off: sums in
+# another order (cuDNN against oneDNN), ~1e-6.  bf16: both round every conv
+# to bf16 at other places; the CPU tests hold the port to flax's bf16 within
+# 2e-2 in eval mode and 0.1 in train mode, where each channel is renormalized
+# by its batch statistics (tests/test_torch_resnet18.py).
 ENC_F32_TOL = 1e-4
 ENC_BF16_TOL = {False: 2e-2, True: 0.1}
 
@@ -1919,41 +1978,10 @@ def chairs_config(data_dir: str, **kw) -> ExperimentConfig:
 
 
 def chairs_card_vs_cpu(dev) -> None:
-    """Phase 11b: the ResNet-18 encoder of the seed-0 chairs model, card
-    against CPU, f32 (TF32 off) and bf16, eval and train mode; one f32 chairs
-    train step at B 8, card against CPU."""
-    x = np.random.default_rng(11).random((CHAIRS_EVAL_B, 5, 64, 64, 3), dtype=np.float32)
-    f32_ref = {}
-    for precision in ("f32", "bf16"):
-        cfg = chairs_config("", precision=precision)
-        enc = build_separable_network(cfg, torch.device("cpu"),
-                                      torch.Generator().manual_seed(0)).Es
-        for train in (False, True):
-            with torch.no_grad():
-                cpu = copy.deepcopy(enc).train(train)(torch.from_numpy(x)).float()
-                card = copy.deepcopy(enc).to(dev).train(train)(
-                    torch.from_numpy(x).to(dev)).float().cpu()
-            scale = float(cpu.abs().max())
-            rel = float((card - cpu).abs().max()) / scale
-            mode = "train" if train else "eval"
-            if precision == "f32":
-                f32_ref[train] = cpu
-                tol = ENC_F32_TOL
-                extra = ""
-            else:
-                tol = ENC_BF16_TOL[train]
-                extra = (f"; card and CPU bf16 against CPU f32: "
-                         f"{float((card - f32_ref[train]).abs().max()) / scale:.3e} and "
-                         f"{float((cpu - f32_ref[train]).abs().max()) / scale:.3e}")
-            print(f"ResNet-18 encoder (seed-0 chairs model, B {CHAIRS_EVAL_B}), card against "
-                  f"CPU, {precision}, {mode} mode: max |card - CPU| {rel:.3e} of the output's "
-                  f"max {scale:.4g} (tolerance {tol:g}){extra}")
-            check(bool(torch.isfinite(card).all()) and rel <= tol,
-                  f"ResNet-18 encoder {precision} {mode}, card against CPU")
-    cfg = chairs_config("", precision="f32", batch_size=TRAIN_CHECK_B)
-    seq = np.random.default_rng(12).random((TRAIN_CHECK_B, cfg.nt_cond + cfg.nt_pred, 64, 64, 3),
-                                           dtype=np.float32)
-    train_step_card_vs_cpu(dev, cfg, seq, "the chairs recipe")
+    """Phase 11b: the ResNet-18 encoder and DCGAN decoder of the seed-0 chairs
+    model, card against CPU, f32 (TF32 off) and bf16, eval and train mode;
+    one f32 chairs train step at B 8, card against CPU."""
+    modules_card_vs_cpu(dev, CHAIRS_RECIPE, "chairs", CHAIRS_EVAL_B, 11, 12, uniform=True)
 
 
 def chairs_data(dev, data_dir: str) -> DeviceChairs:
@@ -2142,42 +2170,10 @@ def chairs_eval_f32(dev, data_dir: str, work: str, flops_peak: float, bw_peak: f
     with torch.inference_mode():
         cond = np.stack([test_set[i][0] for i in range(CHAIRS_EVAL_B)])
         t0 = model.encode_t(torch.from_numpy(cond).to(dev)).contiguous()
-    params = model.t_resnet.flat_params()
-    n = cfg.nt_cond + cfg.nt_pred
-    ref = mlp_resnet_rollout_reference(t0, params, n)
-    rel = step_rel_err(mlp_resnet_rollout(t0, params, n), ref)
-    batch, code = t0.shape
-    hidden = params[0].shape[1]
-    bufs = (torch.empty(n, batch, code, device=dev), torch.empty(batch, hidden, device=dev),
-            torch.empty(batch, hidden, device=dev), torch.empty(batch, code, device=dev))
-    check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
-          "addmm loop disagrees at the chairs shape")
-    stream = rollout_plan(batch, code, hidden, 1, variant="stream")
-    fns = {"cluster": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
-           "stream": lambda: mlp_resnet_rollout(t0, params, n, plan=stream),
-           "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
-           "addmm": lambda: addmm_loop(t0, params, n, *bufs)}
-    runs = {k: [] for k in fns}
-    for k in ("cluster", "stream", "plain", "addmm", "addmm", "plain", "stream", "cluster"):
-        runs[k].append(cuda_ms(fns[k], reps=10, inner=5))
-    ms = {k: float(np.mean(v)) for k, v in runs.items()}
-    ops, nbytes = rollout_cost(batch, code, hidden, 1, n)
-    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-    bound = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"  cluster kernel vs plain at the chairs eval's rollout (t0 from the test split): "
-          f"worst step-relative error {rel:.3e} (tolerance {ROLLOUT_REL_TOL:g})")
-    check(rel <= ROLLOUT_REL_TOL, "cluster kernel disagrees with plain at the chairs shape")
-    print(f"  at B {batch} x {n} steps, code {code}, H {hidden}, in turns: cluster kernel "
-          f"{ms['cluster']:.4f} ms ({runs['cluster'][0]:.4f}, {runs['cluster'][1]:.4f}), "
-          f"{ms['cluster'] / (n - 1) * 1e3:.2f} us a block-step; streaming kernel "
-          f"{ms['stream']:.4f} ms; plain loop {ms['plain']:.4f} ms; eager addmm loop "
-          f"{ms['addmm']:.4f} ms; bound {ops / 1e9:.4f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s "
-          f"f32 = {t_ops:.5f} ms, {nbytes / 1e6:.4f} MB at {bw_peak / 1e12:.2f} TB/s = "
-          f"{t_bytes:.5f} ms: {bound:.5f} ms by {bound_by}, {bound / ms['cluster']:.1%} of the "
-          f"cluster kernel")
-    return {"launches": launches, "rel": rel, "ms": ms, "bound_ms": bound, "bound_by": bound_by,
-            "shapes": f"B {batch}, code {code}, H {hidden}, 1 block, {n} steps"}
+    print("  the cluster kernel at the chairs eval's rollout (t0 from the test split):")
+    kernel = kernel_turns(t0, model.t_resnet.flat_params(), cfg.nt_cond + cfg.nt_pred,
+                          flops_peak, bw_peak)
+    return {**kernel, "launches": launches}
 
 
 def chairs_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
@@ -2214,6 +2210,404 @@ def phase11_only(dev=None) -> None:
     check_kernel_cases(chairs_kernel_cases(dev))
     with tempfile.TemporaryDirectory() as work:
         chairs_phase(dev, work, flops_peak, bw_peak)
+
+
+# -- phases 12 and 13: TaxiBJ and SST ----------------------------------------------
+# The recipes of tests/test_recipes.py:22-29, full width.
+TAXIBJ_RECIPE = ("--data taxibj --nt_cond 4 --nt_pred 4 --lr 4e-5 --batch_size 100 --scheduler "
+                 "--scheduler_decay 0.2 --scheduler_milestones 250 300 350 400 450 --offset 4 "
+                 "--gain_resnet 0.71 --architecture vgg --lamb_ae 45 --lamb_s 0.0001").split()
+SST_RECIPE = ("--data sst --nt_cond 4 --nt_pred 6 --code_size_t 64 --code_size_s 196 --offset 0 "
+              "--gain_resnet 0.71 --architecture encoderSST --decoder_architecture decoderSST "
+              "--lamb_ae 1 --lamb_s 100 --lamb_t 5e-6 --skipco --n_blocks 2").split()
+TAXIBJ_DAYS = 120           # gen_synthetic's default days a year: 4 x 5,760 frames
+SST_ZONES, SST_DAYS = list(range(1, 30)), 1600   # gen_synthetic's defaults (~1.5 GB f64)
+SST_TEST_ZONES = list(range(17, 21))
+SST_WIDE_ZONE = 256         # the full-basin stretch grid, one forward
+CORPUS_EPOCHS, CORPUS_STEPS = 2, 20
+CORPUS_TIMED_STEPS = 10
+CORPUS_RESUME_STEPS, CORPUS_RESUME_STOP_AFTER = 6, 8   # 2 epochs x 6 steps, stopped after 8
+# The last logged loss (step 40) against the first (step 5), a fresh batch
+# every step: it must fall.
+CORPUS_LOSS_FALL = 1.0
+TAXIBJ_EVAL_B, SST_EVAL_B = 128, 64   # the eval CLIs' default batches
+TAXIBJ_TEST_SEQS = 48 * 7 * 4        # the reference's test split (taxibj.py:253-254)
+SST_TEST_SEQS = 4 * 305              # zones 17-20, 320 test days each, windows of 4 + 10 + 1
+CORPUS_CPU_B, CORPUS_CPU_BATCHES = 16, 2
+# SST's SSIM, card against CPU, per sequence.  The protocol renormalizes the
+# physical fields (~295 K) by the normalized data's min/max (~6 wide), so
+# SSIM sees values ~50 with a local variance ~1e-3, and an f32 E[x^2] - mu^2
+# carries ~3e-4 of rounding, the size of c2: computed in f32, the card and
+# the CPU gave per-sequence SSIMs 0.838 apart on an H100.  eval/sst.py
+# computes it in f64, so what remains is the forecasts' own f32 difference
+# (~2e-7 relative) through the metric's conditioning: 3.8e-10 measured.
+SST_SSIM_ATOL = 1e-6
+
+
+def corpus_config(recipe: list, **kw) -> ExperimentConfig:
+    cfg = config_from_args(build_parser().parse_args(recipe + ["--xp_dir", "", "--data_dir", ""]))
+    return dataclasses.replace(cfg, **kw).validate()
+
+
+def modules_card_vs_cpu(dev, recipe: list, label: str, batch: int, x_seed: int, seq_seed: int,
+                        uniform: bool = False) -> None:
+    """Phases 12a and 13a: the seed-0 model's encoder, decoder and (for SST)
+    integrator, card against CPU, f32 (TF32 off) and bf16, eval and train
+    mode, each on the CPU encoder's outputs so that each module is held
+    alone; then one f32 train step at B 8, card against CPU.  Inputs are
+    standard normal (the normalized fields of TaxiBJ and SST), or uniform in
+    [0, 1) (images)."""
+    def draw(seed: int, shape: tuple) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        if uniform:
+            return rng.random(shape, dtype=np.float32)
+        return rng.standard_normal(shape).astype(np.float32)
+
+    cfg = corpus_config(recipe)
+    x = draw(x_seed, (batch, cfg.nt_cond) + cfg.frame_shape)
+    f32_ref = {}
+    for precision in ("f32", "bf16"):
+        cfg = corpus_config(recipe, precision=precision)
+        model = build_separable_network(cfg, torch.device("cpu"), torch.Generator().manual_seed(0))
+        for train in (False, True):
+            cpu, card = copy.deepcopy(model).train(train), copy.deepcopy(model).to(dev).train(train)
+            xs = torch.from_numpy(x)
+            with torch.no_grad():
+                s_full = cpu.encode_s(xs)
+                s, skips = s_full if cfg.skipco else (s_full, None)
+                t = cpu.encode_t(xs)
+                pairs = {
+                    type(cpu.Es).__name__: (cpu.Es(xs), card.Es(xs.to(dev))),
+                    type(cpu.decoder).__name__: (
+                        cpu.decoder(s, t, skip=skips),
+                        card.decoder(s.to(dev), t.to(dev), skip=None if skips is None else
+                                     [k.to(dev) for k in skips])),
+                }
+                if not isinstance(cpu.t_resnet, MLPResnet):
+                    t_int = t.to(cpu.t_resnet.dtype)
+                    pairs[type(cpu.t_resnet).__name__] = (cpu.t_resnet(t_int)[0],
+                                                          card.t_resnet(t_int.to(dev))[0])
+            mode = "train" if train else "eval"
+            for name, (ref, out) in pairs.items():
+                ref, out = ref.float(), out.float().cpu()
+                scale = float(ref.abs().max())
+                rel = float((out - ref).abs().max()) / scale
+                if precision == "f32":
+                    f32_ref[name, train] = ref
+                    tol, extra = ENC_F32_TOL, ""
+                else:
+                    tol = ENC_BF16_TOL[train]
+                    extra = (f"; card and CPU bf16 against CPU f32: "
+                             f"{float((out - f32_ref[name, train]).abs().max()) / scale:.3e} and "
+                             f"{float((ref - f32_ref[name, train]).abs().max()) / scale:.3e}")
+                print(f"{name} ({label} seed-0 model, B {x.shape[0]}), card against CPU, "
+                      f"{precision}, {mode} mode: max |card - CPU| {rel:.3e} of the output's max "
+                      f"{scale:.4g} (tolerance {tol:g}){extra}")
+                check(bool(torch.isfinite(out).all()) and rel <= tol,
+                      f"{label} {name} {precision} {mode}, card against CPU")
+    cfg = corpus_config(recipe, precision="f32", batch_size=TRAIN_CHECK_B)
+    seq = draw(seq_seed, (TRAIN_CHECK_B, cfg.nt_cond + cfg.nt_pred) + cfg.frame_shape)
+    train_step_card_vs_cpu(dev, cfg, seq, f"the {label} recipe")
+
+
+def corpus_sampler(dev, label: str, cfg, host, gen, make_s: float, build_s: float,
+                   upload_s: float) -> None:
+    """Phases 12b and 13b: one batch of the same draws gathered on the card
+    and read from the host items, bitwise; the sampler's ms a batch."""
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(step_seed(cfg.seed, DATA_SALT, 0))
+    draws = gen.draw(rng, cfg.batch_size)
+    card = gen.gather(*(draws if isinstance(draws, tuple) else (draws,))).cpu().numpy()
+    if isinstance(draws, tuple):  # (zone, k): the host index is zone * len_ + k
+        idx = (draws[0] * host.len_ + draws[1]).tolist()
+    else:
+        idx = draws.tolist()
+    items = np.stack([np.concatenate(host[i][:2]) for i in idx])
+    same = card.tobytes() == items.tobytes()
+    ms = cuda_ms(lambda: datagen_batch(gen, cfg, 0, rng), reps=10, inner=5)
+    kernels, busy_ms = device_kernels(lambda: datagen_batch(gen, cfg, 0, rng))
+    print(f"{type(gen).__name__} ({label}): stand-in made in memory in {make_s:.1f} s, the "
+          f"train split built in {build_s:.1f} s, uploaded in {upload_s:.1f} s: {len(gen)} "
+          f"windows of {gen.seq_len}, {gen.nbytes / 1e6:.1f} MB on the card; one B "
+          f"{cfg.batch_size} batch of the same draws, card == host items bitwise: {same}; "
+          f"datagen_batch {ms:.4f} ms between CUDA events, {kernels:.0f} device kernels busy "
+          f"{busy_ms:.4f} ms (profiler)")
+    check(card.shape == (cfg.batch_size, gen.seq_len) + cfg.frame_shape,
+          f"{label}: batch shape {card.shape}")
+    check(same, f"{label} windows differ between the card and the host items")
+
+
+def corpus_train(dev, label: str, recipe: list, gen, work: str) -> tuple:
+    """Phases 12c and 13c: the recipe through ``run_training`` with the
+    sampler over the stand-in held in memory (the train CLI reads the
+    reference's HDF5 files, and h5py is not on every machine), 2 epochs x 20
+    steps: the loss falls, 0 launches, samples/s, the fused step's ms, a
+    profiler trace; then a mid-epoch resume, bitwise.  Returns (the
+    experiment directory, the profiler's figures)."""
+    xp = os.path.join(work, label)
+    cfg = corpus_config(recipe, xp_dir=xp, seed=0, epochs=CORPUS_EPOCHS,
+                        steps_per_epoch=CORPUS_STEPS)
+    os.makedirs(xp)
+    cfg.save(os.path.join(xp, "params.json"))
+    print(f"{label} training: run_training(device_gen={type(gen).__name__}) at the recipe "
+          f"{' '.join(recipe)}, bf16, {CORPUS_EPOCHS} epochs x {CORPUS_STEPS} steps")
+    reset_launch_counts()
+    state = run_training(cfg, device=dev, log_every=5, log_fn=lambda s: None, device_gen=gen)
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    rows = metrics_rows(xp)
+    losses = [(int(r["step"]), float(r["loss"])) for r in rows if not r["samples_per_sec"]]
+    epochs = [float(r["samples_per_sec"]) for r in rows if r["samples_per_sec"]]
+    print(f"  {label}: steps {state.step}, precision {cfg.precision}, rollout kernel launches "
+          f"while training {launches}; loss by step: "
+          + ", ".join(f"{s}: {v:.4f}" for s, v in losses))
+    check(state.step == CORPUS_EPOCHS * CORPUS_STEPS and cfg.precision == "bf16",
+          f"{label}: steps or precision")
+    check(launches == {"cluster": 0, "stream": 0}, f"{label}: training launched the kernel")
+    check(len(losses) >= 2 and all(np.isfinite(v) for _, v in losses), f"{label}: loss rows")
+    print(f"  last/first logged loss {losses[-1][1] / losses[0][1]:.4f} (must be below "
+          f"{CORPUS_LOSS_FALL:g})")
+    check(losses[-1][1] < CORPUS_LOSS_FALL * losses[0][1], f"{label}: the loss did not fall")
+    for e, sps in enumerate(epochs):
+        print(f"  epoch {e}: {sps:.1f} samples/s = {cfg.batch_size / sps * 1e3:.3f} ms/step"
+              + (" (includes the first step's warm-up)" if e == 0 else ""))
+    check(len(epochs) == CORPUS_EPOCHS, f"{label}: one samples/s row an epoch")
+    step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
+    for _ in range(3):
+        step(state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(CORPUS_TIMED_STEPS):
+        step(state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / CORPUS_TIMED_STEPS * 1e3
+    print(f"  the fused step alone: {step_ms:.3f} ms/step, "
+          f"{cfg.batch_size / step_ms * 1e3:.1f} samples/s ({CORPUS_TIMED_STEPS} steps, fenced)")
+    prof = profile_train_steps(state, lambda s, c, t: step(s), None, None)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, step
+    reset_launch_counts()
+    train_resume_bitwise(dev, label, lambda run: corpus_config(
+        recipe, xp_dir=os.path.join(work, f"{label}_resume_{run}"), seed=0,
+        epochs=CORPUS_EPOCHS, steps_per_epoch=CORPUS_RESUME_STEPS),
+        CORPUS_EPOCHS * CORPUS_RESUME_STEPS, CORPUS_RESUME_STOP_AFTER, device_gen=gen)
+    check(mlp_resnet_rollout.variant_launches == {"cluster": 0, "stream": 0},
+          f"{label}: the resume runs launched the kernel")
+    return xp, {"ms_step": step_ms, **prof}
+
+
+def corpus_eval_checkpoint(dev, xp: str, label: str, evaluate, test_set, n_seq: int,
+                           protocol: str, **extra) -> dict:
+    """Phases 12d and 13d: the protocol on the bf16 checkpoint over the whole
+    test split, as its CLI scores it (the checkpoint loaded from ``xp``), with
+    the test split held in memory; the CLI's ``evals.json`` record."""
+    reset_launch_counts()
+    t = time.perf_counter()
+    means = evaluate(xp, "", test_set=test_set, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    eval_common.write_eval_json(xp, protocol, means, epoch=None, bn_reestimate=0, **extra)
+    record = json.load(open(os.path.join(xp, "evals.json")))[protocol]
+    print(f"{label} protocol on the bf16 checkpoint: {n_seq} sequences in {wall:.1f} s "
+          f"({n_seq / wall:.1f} sequences/s, checkpoint load included); means {means}; rollout "
+          f"launches {launches}; evals.json {record}")
+    check(all(np.isfinite(v) for v in means.values()), f"{label}: non-finite means")
+    check(launches == {"cluster": 0, "stream": 0}, f"{label}: the bf16 eval launched a kernel")
+    check(all(record[k] == v for k, v in means.items()) and "max_batches" not in record,
+          f"{label}: evals.json record")
+    return {"wall_s": wall, "means": means}
+
+
+def kernel_turns(t0, params, n, flops_peak: float, bw_peak: float) -> dict:
+    """The kernel at (t0, n) against its plain version, then timed in turns
+    with the streaming kernel, the plain and addmm loops, beside its bound."""
+    batch, code = t0.shape
+    hidden = params[0].shape[1]
+    plan = rollout_plan(batch, code, hidden, len(params) // 6)
+    ref = mlp_resnet_rollout_reference(t0, params, n)
+    reset_launch_counts()
+    out = mlp_resnet_rollout(t0, params, n)
+    torch.cuda.synchronize()
+    check(mlp_resnet_rollout.variant_launches[plan.variant] == 1, "one kernel launch")
+    rel, abs_err = step_rel_err(out, ref), float((out - ref).abs().max())
+    dev = t0.device
+    bufs = (torch.empty(n, batch, code, device=dev), torch.empty(batch, hidden, device=dev),
+            torch.empty(batch, hidden, device=dev), torch.empty(batch, code, device=dev))
+    check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
+          "addmm loop disagrees")
+    stream = rollout_plan(batch, code, hidden, len(params) // 6, variant="stream")
+    fns = {"cluster": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
+           "stream": lambda: mlp_resnet_rollout(t0, params, n, plan=stream),
+           "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
+           "addmm": lambda: addmm_loop(t0, params, n, *bufs)}
+    runs = {k: [] for k in fns}
+    for k in ("cluster", "stream", "plain", "addmm", "addmm", "plain", "stream", "cluster"):
+        runs[k].append(cuda_ms(fns[k], reps=10, inner=5))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    ops, nbytes = rollout_cost(batch, code, hidden, len(params) // 6, n)
+    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    bound = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"  {plan.variant} kernel {plan} vs plain: worst step-relative error {rel:.3e} "
+          f"(tolerance {ROLLOUT_REL_TOL:g}), max abs {abs_err:.3e}")
+    check(rel <= ROLLOUT_REL_TOL, f"the {plan.variant} kernel disagrees with plain")
+    print(f"  at B {batch} x {n} steps, code {code}, H {hidden}, in turns: cluster kernel "
+          f"{ms['cluster']:.4f} ms ({runs['cluster'][0]:.4f}, {runs['cluster'][1]:.4f}), "
+          f"{ms['cluster'] / (n - 1) * 1e3:.2f} us a block-step; streaming kernel "
+          f"{ms['stream']:.4f} ms; plain loop {ms['plain']:.4f} ms; eager addmm loop "
+          f"{ms['addmm']:.4f} ms; bound {ops / 1e9:.4f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s "
+          f"f32 = {t_ops:.5f} ms, {nbytes / 1e6:.4f} MB at {bw_peak / 1e12:.2f} TB/s = "
+          f"{t_bytes:.5f} ms: {bound:.5f} ms by {bound_by}, {bound / ms['cluster']:.1%} of the "
+          f"cluster kernel")
+    return {"rel": rel, "abs": abs_err, "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "plan": plan, "shapes": f"B {batch}, code {code}, H {hidden}, "
+                                    f"{len(params) // 6} block(s), {n} steps"}
+
+
+def taxibj_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
+    """Phase 12: TaxiBJ on the card.  Returns 12e's kernel figures."""
+    t_phase = time.perf_counter()
+    modules_card_vs_cpu(dev, TAXIBJ_RECIPE, "TaxiBJ", CORPUS_CPU_B, 12, 13)   # 12a
+    t = time.perf_counter()
+    years = [(data, dates) for _, data, dates in synthetic_corpora.taxibj_years(TAXIBJ_DAYS)]
+    make_s = time.perf_counter() - t
+    cfg = corpus_config(TAXIBJ_RECIPE, seed=0)
+    t = time.perf_counter()
+    train, test = TaxiBJ.from_arrays(years, len_closeness=cfg.nt_cond + cfg.nt_pred,
+                                     nt_cond=cfg.nt_cond)
+    build_s = time.perf_counter() - t
+    del years
+    t = time.perf_counter()
+    gen = DeviceItems.from_host_dataset(train, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    check(len(test) == TAXIBJ_TEST_SEQS, "the TaxiBJ test split's size")
+    corpus_sampler(dev, "TaxiBJ", cfg, train, gen, make_s, build_s, upload_s)   # 12b
+    xp, prof = corpus_train(dev, "taxibj", TAXIBJ_RECIPE, gen, work)           # 12c
+    del gen
+    ckpt = corpus_eval_checkpoint(dev, xp, "TaxiBJ mse_t4", eval_taxibj.evaluate, test,  # 12d
+                                  TAXIBJ_TEST_SEQS, "taxibj")
+    # 12e: the f32 seed-0 model through evaluate(model_bundle=...)
+    cfg = corpus_config(TAXIBJ_RECIPE, precision="f32", seed=0)
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+    n_batches = -(-TAXIBJ_TEST_SEQS // TAXIBJ_EVAL_B)
+    reset_launch_counts()
+    t = time.perf_counter()
+    means = eval_taxibj.evaluate(os.path.join(work, "taxibj_f32"), "", model_bundle=(model, cfg),
+                                 test_set=test)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    plan = rollout_plan(TAXIBJ_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
+    print(f"evaluate(model_bundle=f32 seed-0 TaxiBJ model, full width), {TAXIBJ_TEST_SEQS} "
+          f"sequences in {n_batches} batches of {TAXIBJ_EVAL_B}: {wall:.2f} s; means {means}; "
+          f"rollout plan {plan} ({plan.grid // plan.cluster} clusters); launches {launches}")
+    check(np.isfinite(means["mse_t4"]), "f32 TaxiBJ mse_t4")
+    check((plan.variant, plan.cluster, plan.grid // plan.cluster) == ("cluster", 8, 16),
+          f"the TaxiBJ B128 plan {plan} is not the cluster kernel at C 8 with 16 clusters")
+    check(launches == {"cluster": n_batches, "stream": 0}, "one cluster launch a TaxiBJ batch")
+    cut = CORPUS_CPU_B * CORPUS_CPU_BATCHES
+    sub = TaxiBJ(test.data[:cut], test.nt_cond, test.mmn)
+    card = eval_taxibj.frame_mses("", model, cfg, sub, CORPUS_CPU_B)
+    cpu = eval_taxibj.frame_mses("", copy.deepcopy(model).cpu(), cfg, sub, CORPUS_CPU_B)
+    err = float(np.max(np.abs(card - cpu) / cpu))
+    print(f"  per-sequence frame MSEs, card against CPU, {cut} sequences: worst relative "
+          f"{err:.3e} (tolerance {EVAL_MSE_RTOL:g})")
+    check(err <= EVAL_MSE_RTOL, "TaxiBJ frame MSEs, card against CPU")
+    with torch.inference_mode():
+        cond = torch.from_numpy(test.data[:TAXIBJ_EVAL_B, :cfg.nt_cond].copy()).to(dev)
+        t0 = model.encode_t(cond).contiguous()
+    kernel = kernel_turns(t0, model.t_resnet.flat_params(), cfg.nt_cond + 4, flops_peak, bw_peak)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return {**kernel, "launches": launches, "train": prof, "ckpt": ckpt}
+
+
+def sst_phase(dev, work: str) -> dict:
+    """Phase 13: SST on the card.  Returns the launches of 13e."""
+    t_phase = time.perf_counter()
+    modules_card_vs_cpu(dev, SST_RECIPE, "SST", CORPUS_CPU_B // 2, 13, 13)   # 13a
+    wide = corpus_config(SST_RECIPE, precision="bf16", zone_size=SST_WIDE_ZONE)
+    model = build_separable_network(wide, dev, torch.Generator().manual_seed(0)).eval()
+    z = SST_WIDE_ZONE
+    with torch.inference_mode():
+        fc, t_codes, _, _ = model.get_forecast(torch.randn(2, 4, z, z, 1, device=dev), 10)
+    print(f"SST at --zone_size {z} (bf16, seed 0): forecast {tuple(fc.shape)}, T codes "
+          f"{tuple(t_codes.shape)}")
+    check(tuple(fc.shape) == (2, 10, z, z, 1)
+          and tuple(t_codes.shape) == (2, 10, wide.code_size_t, z // 4, z // 4)
+          and bool(torch.isfinite(fc.float()).all()), f"the SST forward at zone_size {z}")
+    del model, fc, t_codes
+    cfg = corpus_config(SST_RECIPE, seed=0)
+    t = time.perf_counter()
+    arrays = synthetic_corpora.sst_zone_arrays(zones=SST_ZONES, n_days=SST_DAYS,
+                                               size=cfg.zone_size)
+    make_s = time.perf_counter() - t
+    t = time.perf_counter()
+    train = SST(None, cfg.nt_cond, cfg.nt_pred, True, zones=SST_ZONES, arrays=arrays)
+    build_s = time.perf_counter() - t
+    test = SST(None, cfg.nt_cond, eval_sst.NT_PRED, False, zones=SST_TEST_ZONES, eval=True,
+               arrays=arrays)
+    del arrays
+    t = time.perf_counter()
+    gen = DeviceZoneWindows.from_host_dataset(train, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    check(len(test) == SST_TEST_SEQS, "the SST test split's size")
+    corpus_sampler(dev, "SST", cfg, train, gen, make_s, build_s, upload_s)   # 13b
+    del train
+    xp, prof = corpus_train(dev, "sst", SST_RECIPE, gen, work)               # 13c
+    del gen
+    ckpt = corpus_eval_checkpoint(dev, xp, "SST", eval_sst.evaluate, test, SST_TEST_SEQS, "sst",
+                                  zones=SST_TEST_ZONES, reference_broadcast=False)   # 13d
+    means = ckpt["means"]
+    check(0 < means["ssim_t6"] <= 1 and 0 < means["ssim_t10"] <= 1, "SST SSIM outside (0, 1]")
+    # 13e: the f32 seed-0 model: ConvResnet loops, no kernel
+    cfg = corpus_config(SST_RECIPE, precision="f32", seed=0)
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+    reset_launch_counts()
+    t = time.perf_counter()
+    means = eval_sst.evaluate(os.path.join(work, "sst_f32"), "", model_bundle=(model, cfg),
+                              test_set=test)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    print(f"evaluate(model_bundle=f32 seed-0 SST model, full width), {SST_TEST_SEQS} sequences "
+          f"in batches of {SST_EVAL_B}: {wall:.2f} s; means {means}; rollout launches "
+          f"{launches} (ConvResnet loops its module)")
+    check(all(np.isfinite(v) for v in means.values()), "f32 SST means")
+    check(launches == {"cluster": 0, "stream": 0}, "the f32 SST eval launched a rollout kernel")
+    cpu_model = copy.deepcopy(model).cpu()
+    for broadcast, batches in ((False, CORPUS_CPU_BATCHES), (True, 1)):
+        card = eval_sst.sequence_scores("", model, cfg, test, CORPUS_CPU_B, batches, broadcast)
+        cpu = eval_sst.sequence_scores("", cpu_model, cfg, test, CORPUS_CPU_B, batches, broadcast)
+        mse_err = float(np.max(np.abs(card[0] - cpu[0]) / cpu[0]))
+        ssim_err = float(np.max(np.abs(card[1] - cpu[1])))
+        print(f"  per-sequence scores, card against CPU, {len(cpu[0])} sequences"
+              f"{', reference_broadcast' if broadcast else ''}: MSE worst relative "
+              f"{mse_err:.3e} (tolerance {EVAL_MSE_RTOL:g}), SSIM worst {ssim_err:.3e} "
+              f"(tolerance {SST_SSIM_ATOL:g})")
+        check(mse_err <= EVAL_MSE_RTOL and ssim_err <= SST_SSIM_ATOL,
+              "SST scores, card against CPU")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "train": prof, "ckpt": ckpt}
+
+
+def phase12_13_only(dev=None) -> None:
+    """Phases 12 and 13 alone, a quicker run on the card than the whole
+    script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase12_13_only()"
+    """
+    dev = torch.device("cuda:0") if dev is None else dev
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {nvidia_smi()}")
+    card = torch.cuda.get_device_name(0)
+    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    _build.build()
+    with tempfile.TemporaryDirectory() as work:
+        taxibj_phase(dev, work, flops_peak, bw_peak)
+        sst_phase(dev, work)
 
 
 def check_kernel_cases(cases: dict) -> dict:
@@ -2262,10 +2656,18 @@ def check_kernel_cases(cases: dict) -> dict:
 
 def main() -> None:
     # -- 1. device -----------------------------------------------------
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
     dev = torch.device("cuda:0")
+    t_phase = time.perf_counter()
+
+    def phase_done(label) -> None:
+        nonlocal t_phase
+        print(f"phase {label}: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
     print(f"nvidia-smi: {smi}")
@@ -2276,6 +2678,7 @@ def main() -> None:
     print(f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    phase_done(1)
 
     # -- 2. build ------------------------------------------------------
     t = time.perf_counter()
@@ -2288,6 +2691,7 @@ def main() -> None:
                   if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
         print(f"  {name}: ptxas reports " + ("no register spills" if not spills else
                                              "register spills: " + "; ".join(spills)))
+    phase_done(2)
 
     # -- 3. kernel against plain ---------------------------------------
     cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
@@ -2318,6 +2722,7 @@ def main() -> None:
     cases.update(chairs_kernel_cases(dev))
     errors = check_kernel_cases(cases)
     check({v for _, v in errors} == {"cluster", "stream"}, "both variants checked")
+    phase_done(3)
 
     # -- 4a. serving: the main path ------------------------------------
     fc = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
@@ -2377,6 +2782,7 @@ def main() -> None:
     print(f"4-block serving T codes vs plain rollout: step-relative {rel:.3e} "
           f"(tolerance {ROLLOUT_REL_TOL:g})")
     check(rel <= ROLLOUT_REL_TOL, "4-block serving T codes disagree with the plain rollout")
+    phase_done(4)
 
     # -- 5. timing -----------------------------------------------------
     print(f"timing on {smi} (TF32 off)")
@@ -2423,20 +2829,25 @@ def main() -> None:
     print(f"  bound: {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
           f"{t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
           f"{t_bytes:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+    phase_done(5)
 
     # -- 6. the train step, card against CPU -------------------------------
     train_step_card_vs_cpu(dev)
+    phase_done(6)
 
     # -- 7. the flagship train step ------------------------------------------
     bf16_ms = flagship_train(dev, smi, card)
+    phase_done(7)
 
     # -- 8. the train entry point, and 9. evaluation, in one working dir ------
     with tempfile.TemporaryDirectory() as work:
         served, xp, data_dir = train_entry_point(dev, bf16_ms, work)
         print(f"rollout kernel launches on the from_xp_dir request: {served}")
+        phase_done(8)
         evals = evaluation(dev, smi, model, cfg, xp, data_dir, work)
     b16 = evals["b16"]
     eval_ms = eval_kernel_timing(b16["t0"], b16["params"], flops_peak, bw_peak)
+    phase_done(9)
 
     # -- 10. WaveEq and WaveEq-100 ---------------------------------------------
     with tempfile.TemporaryDirectory() as work:
@@ -2451,6 +2862,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         chairs = chairs_phase(dev, work, flops_peak, bw_peak)
     chairs_labels = [label for label in cases if label.startswith("chairs")]
+
+    # -- 12. TaxiBJ and 13. SST (each prints its own seconds) -------------------
+    with tempfile.TemporaryDirectory() as work:
+        taxibj = taxibj_phase(dev, work, flops_peak, bw_peak)
+        sst = sst_phase(dev, work)
+    taxibj_keys = {"taxibj_shapes": taxibj["shapes"], "taxibj_plan": taxibj["plan"]._asdict(),
+                   "taxibj_ms": taxibj["ms"]["cluster"], "taxibj_stream_ms": taxibj["ms"]["stream"],
+                   "taxibj_plain_ms": taxibj["ms"]["plain"],
+                   "taxibj_addmm_loop_ms": taxibj["ms"]["addmm"],
+                   "taxibj_bound_ms": taxibj["bound_ms"], "taxibj_bound_by": taxibj["bound_by"],
+                   "taxibj_max_step_rel_err": taxibj["rel"], "taxibj_max_abs_err": taxibj["abs"]}
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
 
     def chairs_keys(v: str) -> dict:
         rel = max([errors[label, v][0] for label in chairs_labels]
@@ -2502,6 +2925,18 @@ def main() -> None:
                           "wave and wave_partial training (10d)": 0},
         **(wave_keys if v == "stream" else {}),
         **chairs_keys(v),
+        "launches_taxibj": {
+            "taxibj evaluate(model_bundle=f32 seed 0), whole test split (12e)":
+                taxibj["launches"][v],
+            "taxibj on the bf16 checkpoint (12d)": 0,
+            "taxibj training and its resume (12c)": 0,
+            "taxibj train step, card against CPU (12a)": 0},
+        **(taxibj_keys if v == "cluster" else {}),
+        "launches_sst": {
+            "sst evaluate(model_bundle=f32 seed 0), zones 17-20 (13e)": sst["launches"][v],
+            "sst on the bf16 checkpoint (13d)": 0,
+            "sst training and its resume (13c)": 0,
+            "sst train step, card against CPU (13a)": 0},
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

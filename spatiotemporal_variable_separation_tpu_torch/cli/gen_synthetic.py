@@ -1,16 +1,16 @@
 """Synthetic stand-in corpora CLI::
 
-    python -m spatiotemporal_variable_separation_tpu_torch.cli.gen_synthetic chairs --data_dir D
+    python -m spatiotemporal_variable_separation_tpu_torch.cli.gen_synthetic CORPUS --data_dir D
 
 The port's counterpart of the JAX package's ``cli/gen_synthetic.py``, with
-its flags.  It writes the Chairs stand-in (``data/synthetic_corpora.py``);
-the other corpora come with their verticals and raise until then."""
+its flags.  It writes the TaxiBJ, SST and Chairs stand-ins
+(``data/synthetic_corpora.py``; TaxiBJ and SST need h5py); the MNIST
+stand-in is not ported yet and raises."""
 
 import argparse
 
 # corpus -> the ROADMAP.md Queue 1 item that brings its generator
-LATER = {"taxibj": "item 7+8c (TaxiBJ)", "sst": "item 7+8d (SST)",
-         "mnist": "item 7e/8e (it needs scikit-learn's bundled digits)"}
+LATER = {"mnist": "item 7e/8e (it needs scikit-learn's bundled digits)"}
 
 
 def main(argv=None):
@@ -30,11 +30,17 @@ def main(argv=None):
 
     if args.corpus in LATER:
         raise NotImplementedError(
-            f"gen_synthetic {args.corpus}: the port generates the chairs stand-in so far; "
+            f"gen_synthetic {args.corpus}: the port generates the taxibj, sst and chairs "
+            "stand-ins so far; "
             f"{args.corpus} comes with ROADMAP.md Queue 1, {LATER[args.corpus]}")
-    from spatiotemporal_variable_separation_tpu_torch.data.synthetic_corpora import make_chairs
+    from spatiotemporal_variable_separation_tpu_torch.data import synthetic_corpora as sc
 
-    make_chairs(args.data_dir, args.n_objects, args.seed)
+    if args.corpus == "taxibj":
+        sc.make_taxibj(args.data_dir, args.days_per_year, args.seed)
+    elif args.corpus == "sst":
+        sc.make_sst(args.data_dir, args.zones, args.n_days, args.seed, args.size)
+    else:
+        sc.make_chairs(args.data_dir, args.n_objects, args.seed)
     print(f"synthetic {args.corpus} corpus written to {args.data_dir}")
 
 

@@ -1,11 +1,10 @@
 """Dataset dispatch (reference ``var_sep/main.py:70-102``) and training
 iterators.
 
-Torch counterpart of the JAX package's ``data/registry.py`` for what the port
-trains on so far: Moving MNIST, made on the card or on the host; WaveEq and
-WaveEq-100, and 3D Chairs, windows gathered on the card or assembled on the
-host.  TaxiBJ and SST raise ``NotImplementedError`` until their slice is
-ported."""
+Torch counterpart of the JAX package's ``data/registry.py``: Moving MNIST,
+made on the card or on the host; WaveEq and WaveEq-100, 3D Chairs, TaxiBJ and
+SST, windows gathered on the card from the train split uploaded once, or
+assembled on the host."""
 
 from __future__ import annotations
 
@@ -17,16 +16,7 @@ from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentC
 from spatiotemporal_variable_separation_tpu_torch.data.loader import Batcher, background_iter
 
 
-def _refuse(cfg: ExperimentConfig) -> None:
-    if cfg.data in ("taxibj", "sst"):
-        raise NotImplementedError(
-            f"dataset {cfg.data!r}: the port trains on Moving MNIST, WaveEq and Chairs so "
-            "far; TaxiBJ comes with ROADMAP.md Queue 1, slice 8 (item 7+8c) and SST with "
-            "slice 8 (item 7+8d)")
-
-
 def make_train_dataset(cfg: ExperimentConfig):
-    _refuse(cfg)
     seq_len = cfg.nt_cond + cfg.nt_pred
     if cfg.data == "mnist":
         from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import MovingMNIST
@@ -37,6 +27,19 @@ def make_train_dataset(cfg: ExperimentConfig):
         from spatiotemporal_variable_separation_tpu_torch.data.chairs import Chairs
 
         return Chairs(True, cfg.data_dir, cfg.nt_cond, seq_len)
+    if cfg.data == "taxibj":
+        from spatiotemporal_variable_separation_tpu_torch.data.taxibj import TaxiBJ
+
+        return TaxiBJ.make_datasets(cfg.data_dir, len_closeness=seq_len, nt_cond=cfg.nt_cond)[0]
+    if cfg.data == "sst":
+        from spatiotemporal_variable_separation_tpu_torch.data.sst import SST
+
+        ds = SST(cfg.data_dir, cfg.nt_cond, cfg.nt_pred, True, zones=cfg.zones)
+        if ds.zone_size != cfg.image_size:
+            raise ValueError(
+                f"corpus grids are {ds.zone_size}x{ds.zone_size} but the config expects "
+                f"{cfg.image_size} — pass --zone_size {ds.zone_size}")
+        return ds
     from spatiotemporal_variable_separation_tpu_torch.data.wave_eq import WaveEq, WaveEqPartial
 
     if cfg.data == "wave":
@@ -46,11 +49,11 @@ def make_train_dataset(cfg: ExperimentConfig):
 
 
 def make_device_generator(cfg: ExperimentConfig, device=None):
-    """The on-device batch generator on ``device`` (``DeviceMovingMNIST``,
-    or ``DeviceWaveEq`` or ``DeviceChairs`` over the train split), or None under
+    """The on-device batch generator on ``device`` (``DeviceMovingMNIST``, or
+    ``DeviceWaveEq``, ``DeviceChairs``, ``DeviceItems`` or
+    ``DeviceZoneWindows`` over the train split), or None under
     ``--no-device_datagen`` or when the data files are missing (the host
     dataset then raises the missing-file error)."""
-    _refuse(cfg)
     if not cfg.device_datagen:
         return None
     if cfg.data == "mnist":
@@ -74,6 +77,16 @@ def make_device_generator(cfg: ExperimentConfig, device=None):
         )
 
         return DeviceChairs.from_host_dataset(host, device=device)
+    if cfg.data == "taxibj":
+        from spatiotemporal_variable_separation_tpu_torch.data.taxibj_device import DeviceItems
+
+        return DeviceItems.from_host_dataset(host, device=device)
+    if cfg.data == "sst":
+        from spatiotemporal_variable_separation_tpu_torch.data.sst_device import (
+            DeviceZoneWindows,
+        )
+
+        return DeviceZoneWindows.from_host_dataset(host, device=device)
     from spatiotemporal_variable_separation_tpu_torch.data.wave_device import DeviceWaveEq
 
     if cfg.data == "wave":
@@ -95,8 +108,8 @@ def epoch_iterator(cfg: ExperimentConfig, dataset, epoch: int) -> Iterator:
     ``--steps_per_epoch``, the LR schedule and resume accounting agree.
 
     Datasets with a vectorized ``generate_batch`` (Moving MNIST) use it on a
-    background thread; map-style datasets (WaveEq, Chairs) go through the shuffled
-    Batcher."""
+    background thread; map-style datasets (WaveEq, Chairs, TaxiBJ, SST) go
+    through the shuffled Batcher."""
     n_steps = steps_per_epoch(cfg, dataset)
     if hasattr(dataset, "generate_batch"):
         nt_cond = cfg.nt_cond

@@ -1,10 +1,12 @@
 """Model factory: a validated config -> the port's modules.
 
-Torch counterpart of the JAX package's ``models/factory.py:35-61, 121-149``
-(reference ``main.py:116-140``) for what the port runs so far: the DCGAN-64
-and MLP encoders and decoders (in any pairing the config allows), the
-ResNet-18 encoder, and the MLP-ResNet integrator, under the three precision
-policies.  Every weight is
+Torch counterpart of the JAX package's ``models/factory.py:35-149``
+(reference ``main.py:116-140``): the DCGAN-64, VGG-64 and MLP encoders and
+decoders (in any pairing the config allows), the ResNet-18 encoder, the SST
+encoder and decoders, and the integrator the config names (the MLP-ResNet,
+or the convolutional one iff ``cfg.fully_conv_integrator``), under the three
+precision policies.  The constant S module (``--no_s``) is not ported yet.
+Every weight is
 drawn from the caller's ``torch.Generator`` on the CPU, so one seed builds
 the same model on every machine, and the model is then moved to
 ``device``.  Parameters are f32 under every policy.
@@ -24,16 +26,16 @@ from spatiotemporal_variable_separation_tpu_torch.core.config import (
 from spatiotemporal_variable_separation_tpu_torch.models.conv import (
     DCGAN64Decoder,
     DCGAN64Encoder,
+    DecoderSST,
+    DecoderSSTSkip,
+    EncoderSST,
+    VGG64Decoder,
+    VGG64Encoder,
 )
-from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
+from spatiotemporal_variable_separation_tpu_torch.models.integrator import ConvResnet, MLPResnet
 from spatiotemporal_variable_separation_tpu_torch.models.mlp_encdec import MLPDecoder, MLPEncoder
 from spatiotemporal_variable_separation_tpu_torch.models.resnet18 import ResNet18
 from spatiotemporal_variable_separation_tpu_torch.models.separable import SeparableNetwork
-
-# The encoder and decoder families the port builds so far.
-PORTED_ENCODERS = ("dcgan", "mlp", "resnet")
-PORTED_DECODERS = ("dcgan", "mlp")
-
 
 def compute_dtype(precision: str) -> torch.dtype:
     """The encoders' and decoder's compute type: f32 for ``f32``, else bf16."""
@@ -56,11 +58,16 @@ def integrator_dtype(precision: str) -> torch.dtype:
 
 def _encoder(cfg: ExperimentConfig, nh: int, **kw) -> torch.nn.Module:
     """The encoder of ``cfg.architecture`` (JAX ``factory.py:64-82``)."""
+    in_c = cfg.nt_cond * cfg.channels
     if cfg.architecture == "dcgan":
-        return DCGAN64Encoder(cfg.nt_cond * cfg.channels, nh, cfg.enc_hidden_size,
-                              bn_dtype=bn_io_dtype(cfg), **kw)
+        return DCGAN64Encoder(in_c, nh, cfg.enc_hidden_size, bn_dtype=bn_io_dtype(cfg), **kw)
+    if cfg.architecture == "vgg":
+        return VGG64Encoder(in_c, nh, cfg.enc_hidden_size, vgg32=cfg.image_size == 32,
+                            bn_dtype=bn_io_dtype(cfg), **kw)
     if cfg.architecture == "resnet":
-        return ResNet18(cfg.nt_cond * cfg.channels, nh, bn_dtype=bn_io_dtype(cfg), **kw)
+        return ResNet18(in_c, nh, bn_dtype=bn_io_dtype(cfg), **kw)
+    if cfg.architecture == "encoderSST":
+        return EncoderSST(in_c, nh, bn_dtype=bn_io_dtype(cfg), **kw)
     return MLPEncoder(cfg.nt_cond * math.prod(cfg.frame_shape), nh, cfg.enc_hidden_size,
                       cfg.enc_n_layers, **kw)
 
@@ -72,6 +79,13 @@ def _decoder(cfg: ExperimentConfig, **kw) -> torch.nn.Module:
     if cfg.decoder_arch == "dcgan":
         return DCGAN64Decoder(nz, cfg.channels, cfg.dec_hidden_size, skip=cfg.skipco,
                               bn_dtype=bn_io_dtype(cfg), **common)
+    if cfg.decoder_arch == "vgg":
+        return VGG64Decoder(nz, cfg.channels, cfg.dec_hidden_size, skip=cfg.skipco,
+                            vgg32=cfg.image_size == 32, bn_dtype=bn_io_dtype(cfg), **common)
+    if cfg.decoder_arch == "decoderSST":  # concat-only (validated)
+        cls = DecoderSSTSkip if cfg.skipco else DecoderSST
+        return cls(nz, cfg.channels, last_activation=cfg.last_activation,
+                   bn_dtype=bn_io_dtype(cfg), **kw)
     return MLPDecoder(nz, cfg.frame_shape, cfg.dec_hidden_size, cfg.dec_n_layers, **common)
 
 
@@ -82,17 +96,6 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     cfg = cfg.validate()
     if cfg.decoder_arch not in DECODER_ARCH_TYPES:  # e.g. resnet with no decoder named
         raise ValueError(f"unknown decoder architecture {cfg.decoder_arch!r}")
-    missing = []
-    if cfg.architecture not in PORTED_ENCODERS:
-        missing.append(f"encoder {cfg.architecture!r}")
-    if cfg.decoder_arch not in PORTED_DECODERS:
-        missing.append(f"decoder {cfg.decoder_arch!r}")
-    if missing:
-        raise NotImplementedError(
-            f"{' and '.join(missing)}: the port builds the dcgan, mlp and resnet encoders and "
-            "the dcgan and mlp decoders so far; vgg comes with ROADMAP.md Queue 1, slice 7 "
-            "(item 7+8c), encoderSST/decoderSST and the convolutional integrator with "
-            "slice 7 (item 7+8d)")
     if cfg.no_s:
         raise NotImplementedError(
             "--no_s: the constant S module (ConstantS) is not ported yet; it comes with "
@@ -109,9 +112,13 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     es = _encoder(cfg, cfg.code_size_s, **kw)
     et = _encoder(cfg, cfg.code_size_t, **kw)
     decoder = _decoder(cfg, **kw)
-    t_resnet = MLPResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size,
-                         init_type=cfg.init_resnet, init_gain=cfg.gain_resnet,
-                         generator=g, dtype=integrator_dtype(cfg.precision))
+    int_kw = dict(init_type=cfg.init_resnet, init_gain=cfg.gain_resnet, generator=g,
+                  dtype=integrator_dtype(cfg.precision))
+    if cfg.fully_conv_integrator:  # JAX factory.py:111-118
+        t_resnet = ConvResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size,
+                              bn_dtype=bn_io_dtype(cfg), **int_kw)
+    else:
+        t_resnet = MLPResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size, **int_kw)
     model = SeparableNetwork(Es=es, Et=et, t_resnet=t_resnet, decoder=decoder,
                              nt_cond=cfg.nt_cond, skipco=cfg.skipco,
                              decode_mode=cfg.decode_mode, remat=cfg.remat,

@@ -7,8 +7,9 @@ Torch counterparts of the JAX package's ``models/layers.py`` (reference
 * ``LinBlock``  = pre-activation Linear,
 * ``MLP``       = stack of LinBlocks (first layer without activation),
 * ``BatchNorm`` = BatchNorm2d with flax's train-mode arithmetic,
-* ``linear``, ``conv2d`` = a layer applied in a compute type, and
-  ``max_pool_3x3_s2_p1`` (the ResNet-18 stem's pool).
+* ``linear``, ``conv2d`` = a layer applied in a compute type,
+  ``max_pool_3x3_s2_p1`` (the ResNet-18 stem's pool), and ``max_pool_2x``
+  and ``upsample_nearest_2x`` (the VGG and SST stacks' resampling).
 
 Tensors are NCHW inside the port.  Sub-modules carry the flax names
 (``conv``, ``bn``, ``linear``, ``block_{i}``) and are registered in flax call
@@ -183,6 +184,18 @@ def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
     """torch ``MaxPool2d(3, 2, 1)`` on NCHW; its implicit padding is -inf, as
     flax's ``max_pool`` pads (JAX ``layers.py:171-173``)."""
     return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pooling, stride 2, on NCHW (flax ``max_pool(x, (2, 2),
+    strides=(2, 2))``, JAX ``layers.py:168-169``)."""
+    return F.max_pool2d(x, 2, stride=2)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling of NCHW: a repeat along H and W
+    (torch ``nn.Upsample(mode='nearest')``, JAX ``layers.py:161-165``)."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
 def merge_time(x: torch.Tensor) -> torch.Tensor:

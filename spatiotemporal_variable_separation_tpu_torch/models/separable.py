@@ -4,12 +4,13 @@ Torch counterpart of the JAX package's ``models/separable.py`` (reference
 ``var_sep/networks/model.py:20-89``, ``train.py:38-149``):
 
 * S (and its skip maps) and T are encoded once from the conditioning window;
-* in eval mode an f32 integrator (``f32``, ``mixed``) rolls T forward by
-  ``ops.rollout.mlp_resnet_rollout`` -- a hand-written kernel on the card
+* in eval mode an f32 ``MLPResnet`` (``f32``, ``mixed``) rolls T forward
+  by ``ops.rollout.mlp_resnet_rollout`` -- a hand-written kernel on the card
   (the one ``rollout_plan`` picks from the shapes), the plain loop on the
-  CPU -- where the JAX package scans its integrator module; a bf16
-  integrator (``bf16``) is looped as a module, as the JAX package scans it.
-  The kernel is forward-only, as the Pallas one is, so in train mode the
+  CPU -- where the JAX package scans its integrator module; any other
+  integrator (a bf16 ``MLPResnet``, SST's ``ConvResnet`` with its
+  BatchNorm) is looped as a module, as the JAX package scans it.  The
+  kernel is forward-only, as the Pallas one is, so in train mode the
   integrator module is looped under autograd and returns its per-block
   residuals;
 * eval decodes every (S, T_t) pair in one batched fold with BatchNorm frozen,
@@ -28,10 +29,12 @@ statistics alone, as the JAX package's remat does.
 
 Layouts at the public methods follow the JAX package: a window is
 ``(B, nt_cond, *frame)``, forecasts ``(B, n, *frame)``, T codes
-``(B, n, code)``, where a frame is ``(H, W, C)`` or, for partial
+``(B, n, *code)``, where a frame is ``(H, W, C)`` or, for partial
 observations, ``(N, 1)``.  The decoder owns its output layout
-(``stack_to_frames``, ``frame_to_output``): NCHW for the DCGAN decoder, the
-frame itself for the MLP one.  Skip maps stay NCHW.
+(``stack_to_frames``, ``frame_to_output``): NCHW for the convolutional
+decoders, the frame itself for the MLP one.  Codes are flat ``(code,)`` or,
+for SST, NCHW maps ``(C, H, W)`` where the JAX package has ``(H, W, C)``;
+skip maps stay NCHW.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
 from spatiotemporal_variable_separation_tpu_torch.models.layers import running_stats_frozen
 from spatiotemporal_variable_separation_tpu_torch.ops.rollout import mlp_resnet_rollout
 
@@ -99,20 +103,22 @@ class SeparableNetwork(nn.Module):
 
     # -- rollout -------------------------------------------------------
     def _integrate(self, t_code: torch.Tensor, n_forecast: int):
-        """Euler-integrate ``n_forecast - 1`` steps: (B, code) -> T codes
-        (n, B, code) and, in train mode, the residuals (n-1, n_blocks, B,
-        code); eval mode keeps none (the kernel does not return them)."""
+        """Euler-integrate ``n_forecast - 1`` steps: (B, *code) -> T codes
+        (n, B, *code) and, in train mode, the residuals (n-1, n_blocks, B,
+        *code); eval mode keeps none (the kernel does not return them)."""
         if n_forecast <= 1:
             return t_code[None], None
         # Under ``mixed`` the integrator is f32 while the encoder emits bf16.
         t_code = t_code.to(self.t_resnet.dtype)
         if not self.training:
-            # The integrator's dtype alone picks the path; a failure picks
-            # nothing (a failed kernel launch raises).  An f32 integrator
-            # (``f32``, ``mixed``) runs the rollout kernel.  A bf16 one
-            # (``bf16``) loops the module, as the JAX package scans it: the
-            # Pallas kernel is f32-only and the JAX package never calls it.
-            if self.t_resnet.dtype == torch.float32:
+            # The integrator's type and dtype alone pick the path; a
+            # failure picks nothing (a failed kernel launch raises).  An f32
+            # MLPResnet (``f32``, ``mixed``) runs the rollout kernel.  Any
+            # other integrator loops the module, as the JAX package scans
+            # it: a bf16 MLPResnet (the Pallas kernel is f32-only), and
+            # ConvResnet, whose BatchNorm normalizes with its running
+            # statistics here (the scan broadcasts ``batch_stats``).
+            if isinstance(self.t_resnet, MLPResnet) and self.t_resnet.dtype == torch.float32:
                 t_codes = mlp_resnet_rollout(t_code.contiguous(),
                                              self.t_resnet.flat_params(), n_forecast)
                 return t_codes, None
@@ -121,6 +127,8 @@ class SeparableNetwork(nn.Module):
                 for _ in range(n_forecast - 1):
                     t_codes.append(self.t_resnet(t_codes[-1])[0])
             return torch.stack(t_codes), None
+        # Train mode: one call a step, in step order, so a ConvResnet's
+        # BatchNorm statistics advance as the JAX scan carries them.
         t_codes, residuals = [t_code], []
         for _ in range(n_forecast - 1):
             t, res = self._remat(self.t_resnet, t_codes[-1])
@@ -130,7 +138,7 @@ class SeparableNetwork(nn.Module):
 
     def _decode_all(self, s_code: torch.Tensor, skips, t_codes: torch.Tensor
                     ) -> torch.Tensor:
-        """Decode every (S, T_t) pair: t_codes (n, B, code) -> (B, n, *frame)."""
+        """Decode every (S, T_t) pair: t_codes (n, B, *code) -> (B, n, *frame)."""
         n, b = t_codes.shape[0], t_codes.shape[1]
         if self.training and self.decode_mode == "stepwise":
             frames = torch.stack([self._remat(self.decoder, s_code, t_codes[i], skips)
@@ -160,9 +168,9 @@ class SeparableNetwork(nn.Module):
         """Forecast ``n_forecast`` frames (the first is the decode of T_0).
 
         Returns ``(forecasts, t_codes, s_full, t_residuals)``: forecasts
-        (B, n, *frame), t_codes (B, n, code), S as the encoder produced it
+        (B, n, *frame), t_codes (B, n, *code), S as the encoder produced it
         (``(code, skips)`` when skipco), and in train mode the residuals
-        (n-1, n_blocks, B, code).  In eval mode ``t_residuals`` is None: the
+        (n-1, n_blocks, B, *code).  In eval mode ``t_residuals`` is None: the
         rollout kernel keeps no per-block residuals.
         """
         s_full = self.encode_s(cond) if init_s_code is None else init_s_code

@@ -10,8 +10,9 @@ the reference's vendored implementation (``var_sep/utils/ssim.py:81-149``):
   filtered by one ``F.conv2d`` with one group per map;
 * ``c1 = (k1 max)^2``, ``c2 = (k2 max)^2``.
 
-Precision: the inputs are cast to f32 *before* the products, and the
-convolution runs with TF32 off whatever the caller's global setting.  The
+Precision: the inputs are cast to f32 (or the caller's ``dtype``) *before*
+the products, and the convolution runs with TF32 off whatever the caller's
+global setting.  The
 variance ``E[x^2] - mu^2`` cancels, and reduced-precision moments push SSIM
 above its bound of 1 (the JAX package measured a mean of 1.05 on a TPU with
 its default conv precision, ``ssim.py:39-45``); cuDNN may use TF32 for f32
@@ -27,17 +28,17 @@ import torch
 import torch.nn.functional as F
 
 
-def gaussian_window(filter_size: int = 11, sigma: float = 1.5,
-                    device=None) -> torch.Tensor:
-    """(filter_size, filter_size) f32 window, softmax-normalized."""
-    coords = torch.arange(filter_size, dtype=torch.float32, device=device) - (filter_size - 1) / 2.0
+def gaussian_window(filter_size: int = 11, sigma: float = 1.5, device=None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(filter_size, filter_size) window, softmax-normalized."""
+    coords = torch.arange(filter_size, dtype=dtype, device=device) - (filter_size - 1) / 2.0
     g = -(coords ** 2) / (2.0 * sigma ** 2)
     grid = g[None, :] + g[:, None]
     return torch.softmax(grid.reshape(-1), dim=0).reshape(filter_size, filter_size)
 
 
 def _depthwise_valid(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) f32 -> (N, C, H', W'): every channel filtered by
+    """(N, C, H, W) -> (N, C, H', W'): every channel filtered by
     ``window``, VALID, with TF32 off for this call only."""
     c = x.shape[1]
     kernel = window.expand(c, 1, *window.shape)
@@ -49,16 +50,17 @@ def _depthwise_valid(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 
 def ssim_map(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0,
              filter_size: int = 11, k1: float = 0.01, k2: float = 0.03,
-             sigma: float = 1.5) -> torch.Tensor:
-    """Per-pixel SSIM map of two (B, H, W, C) batches -> (B, H', W', C), f32."""
+             sigma: float = 1.5, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Per-pixel SSIM map of two (B, H, W, C) batches -> (B, H', W', C), in
+    ``dtype`` (f32 by default, as the JAX package computes it)."""
     c1 = (k1 * max_val) ** 2
     c2 = (k2 * max_val) ** 2
     # Cast BEFORE the products: a*a in bf16 would quantize exactly the
     # moments whose cancellation the f32 convolution is there to protect.
-    a = a.float().permute(0, 3, 1, 2)
-    b = b.float().permute(0, 3, 1, 2)
+    a = a.to(dtype).permute(0, 3, 1, 2)
+    b = b.to(dtype).permute(0, 3, 1, 2)
     c = a.shape[1]
-    w = gaussian_window(filter_size, sigma, device=a.device)
+    w = gaussian_window(filter_size, sigma, device=a.device, dtype=dtype)
     moments = _depthwise_valid(torch.cat([a, b, a * a, b * b, a * b], dim=1), w)
     mu1, mu2, e11, e22, e12 = moments.split(c, dim=1)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
@@ -83,11 +85,11 @@ def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0,
     return m
 
 
-def ssim_per_frame(pred: torch.Tensor, gt: torch.Tensor,
-                   max_val: float = 1.0) -> torch.Tensor:
+def ssim_per_frame(pred: torch.Tensor, gt: torch.Tensor, max_val: float = 1.0,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Per-frame, per-channel SSIM of (B, T, H, W, C) sequences -> (B, T, C):
     the reference's ``_ssim_wrapper`` (``test/utils.py:19-24``)."""
     b, t = pred.shape[:2]
     m = ssim_map(pred.reshape((b * t,) + tuple(pred.shape[2:])),
-                 gt.reshape((b * t,) + tuple(gt.shape[2:])), max_val)
+                 gt.reshape((b * t,) + tuple(gt.shape[2:])), max_val, dtype=dtype)
     return m.mean(dim=(1, 2)).reshape(b, t, -1)

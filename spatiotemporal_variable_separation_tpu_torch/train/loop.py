@@ -69,11 +69,15 @@ def _sync(device: torch.device) -> None:
 
 def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: int = 50,
                  log_fn: Callable[[str], None] = print, resume: bool = False,
-                 profile: bool = False, monitor_stability: bool = False) -> TrainState:
+                 profile: bool = False, monitor_stability: bool = False,
+                 device_gen=None) -> TrainState:
     """Train ``cfg`` and return the final state.  The device is the card
     unless the caller asks for the CPU (``device="cpu"``); without a card
     this raises.  ``dataset``: a host dataset that wins over device
-    synthesis.  ``log_every``: steps between loss lines (0: none)."""
+    synthesis.  ``device_gen``: a batch generator on ``device`` to train
+    from in place of the registry's (a sampler over data held in memory,
+    e.g. ``DeviceItems`` over ``TaxiBJ.from_arrays``).  ``log_every``: steps
+    between loss lines (0: none)."""
     cfg = cfg.validate()
     refuse_parallel(cfg)
     if monitor_stability:
@@ -102,7 +106,10 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
                 log_fn(f"resume: config field {k!r} changed: {old!r} -> {new!r}")
             cfg.save(params_path)
     # an explicitly passed dataset always wins over device synthesis.
-    device_gen = make_device_generator(cfg, device) if dataset is None else None
+    if dataset is not None:
+        device_gen = None
+    elif device_gen is None:
+        device_gen = make_device_generator(cfg, device)
     if dataset is None and device_gen is None:
         dataset = make_train_dataset(cfg)
     n_steps = steps_per_epoch(cfg, dataset if dataset is not None else device_gen)

@@ -20,6 +20,7 @@ from spatiotemporal_variable_separation_tpu.cli import options as joptions
 from spatiotemporal_variable_separation_tpu_torch.cli import main as tmain
 from spatiotemporal_variable_separation_tpu_torch.cli import options as toptions
 from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import synthetic_digits
+from spatiotemporal_variable_separation_tpu_torch.data.synthetic_corpora import make_taxibj
 from test_recipes import RECIPES
 from torch_threads import few_torch_threads  # noqa: F401
 
@@ -125,9 +126,15 @@ def test_main_trains_checkpoints_and_resumes_on_the_cpu(tmp_path):
     assert sorted(os.listdir(tmp_path / "xp" / "checkpoints")) == ["1", "2", "final"]
     with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(argv + ["--epochs", "1", "--monitor_stability"])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tmain.main(["--xp_dir", str(tmp_path / "w"), "--data_dir", str(data), "--data", "taxibj",
-                    "--architecture", "vgg", "--platform", "cpu"])
+    # TaxiBJ trains (item 7+8c): one step of a small VGG on the stand-in
+    taxibj = tmp_path / "taxibj"
+    make_taxibj(str(taxibj), days_per_year=10)
+    state = tmain.main(["--xp_dir", str(tmp_path / "w"), "--data_dir", str(taxibj), "--data",
+                        "taxibj", "--architecture", "vgg", "--nt_cond", "4", "--nt_pred", "4",
+                        "--offset", "4", "--batch_size", "4", "--enc_hidden_size", "4",
+                        "--dec_hidden_size", "4", "--res_hidden_size", "16", "--epochs", "1",
+                        "--steps_per_epoch", "1", "--platform", "cpu"])
+    assert state.step == 1 and type(state.model.Es).__name__ == "VGG64Encoder"
 
 
 def test_cli_runs_with_jax_absent(tmp_path):

@@ -206,9 +206,10 @@ def test_refusals(tmp_path, mnist_dir, monkeypatch):
     cfg = _cfg(tmp_path / "xp", mnist_dir, epochs=1, steps_per_epoch=1)
     with pytest.raises(NotImplementedError, match="slice 10"):
         run_training(cfg, device="cpu", monitor_stability=True)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        run_training(ExperimentConfig(**{**SMALL, "data": "taxibj", "architecture": "vgg"}),
-                     device="cpu")
+    # TaxiBJ trains (item 7+8c); the constant S module (item 7e) still raises
+    with pytest.raises(NotImplementedError, match="item 7e"):
+        run_training(ExperimentConfig(**{**SMALL, "no_s": True, "code_size_s": 8}),
+                     device="cpu", dataset=[])
     for kw in ({"num_devices": 2}, {"model_parallel": 2, "num_devices": 2}):
         with pytest.raises(NotImplementedError, match="slice 9"):
             run_training(ExperimentConfig(**{**SMALL, **kw}), device="cpu")
