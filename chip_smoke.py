@@ -13,8 +13,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100::
 
 The rollout has two kernels, chosen per call by ``rollout_plan`` from the
 shapes: the cluster kernel (weights resident in a thread-block cluster's
-shared memory) and the streaming kernel (weights streamed from L2, for
-weights no cluster can hold).  Phases (any failure exits nonzero, and no
+shared memory) and the streaming kernel (the same column split over a
+cluster, each CTA's W2 slices streamed from L2 through a ring of TMA bulk
+copies, for weights no resident cluster can hold).  Phases (any failure exits nonzero, and no
 result line is printed):
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power limit;
@@ -24,10 +25,15 @@ result line is printed):
    ``mlp_resnet_rollout_reference`` on the card, TF32 off, per step and
    relative, each case through the kernel its plan names: the serving
    shapes (B 64, code 20, H 512, 1 block, 100 steps; the cluster kernel at
-   C 8, and the streaming kernel forced), B 13 with 2 blocks (C 16), B 13 at
-   H 516 (C 8, a ragged hidden slice), 4 blocks at H 512 (streaming), and
-   phase 11a's chairs shapes (code 10, H 512, 1 block at B 16 x 15 and B 64 x
-   100; C 8, and the streaming kernel forced);
+   C 8, and the streaming kernel forced: its ring wraps on one slice), B 13
+   with 2 blocks (C 16), B 13 at H 516 (C 8, a ragged hidden slice; and the
+   streaming kernel forced), 4 blocks at H 512 (streaming), the WaveEq
+   eval's shape (B 256 x 45 steps, code 32, H 512, 3 blocks; streaming) and
+   a ragged B 250 of it, 16 blocks at H 256 (the kernels' limit; streaming,
+   30 steps), and phase 11a's chairs shapes (code 10, H 512, 1 block at B 16
+   x 15 and B 64 x 100; C 8, and the streaming kernel forced); for each
+   plan, the kernel's own shared-memory layout against the plan's and the
+   clusters that fit at once;
 4. serving, two paths, each with the launch counts set to 0 just before it
    and read just after:
    a. the main path: ``Forecaster(batch_size=64, n_forecast=100)`` on the
@@ -44,7 +50,8 @@ result line is printed):
 5. timing: the Forecaster's latency and per-layer profile; both kernels at
    the serving shapes, in turns (stream, cluster, cluster, stream); the
    cluster kernel at 4 rows a cluster; the plain loop, the eager
-   ``torch.addmm`` loop and the bound;
+   ``torch.addmm`` loop and the bound; the streaming kernel at the 4-block
+   serving shape beside its plain and ``addmm`` loops and its bound;
 6. the train step, card against CPU: full width, f32 with TF32 off, B 8,
    5+10 frames, offset 5, ``fused_loss``; the same weights, batch and
    ``t_random`` through ``make_train_step`` on the card and on the CPU.
@@ -58,7 +65,7 @@ result line is printed):
    that falls, params and BatchNorm statistics that move, and no rollout
    launch; then the trained weights, served under ``mixed`` (bf16 convs,
    the f32 rollout), answer one request through the cluster kernel (1 launch).
-   Timing: 3 warm-up and 20 timed steps, bf16 and f32 with TF32 off,
+   Timing: 3 warm-up and 10 timed steps, bf16 and f32 with TF32 off,
    ms/step and samples/s; one step split by CUDA events into forward,
    backward and optimizer; a torch.profiler trace (top device kernels, the
    device's idle share); the step's FLOPs counted by
@@ -137,14 +144,15 @@ result line is printed):
        holds 3 blocks at H 512); per-sequence MSE of the first 2 batches,
        card against CPU; the streaming kernel against plain at B 256 x 45
        steps x 3 blocks, timed in turns with the plain and ``addmm`` loops,
-       beside the bound.
+       beside the bound, with its plan (cluster, rows, ring stages, shared
+       memory, waves) and its us a block-step.
 11. 3D Chairs (the recipe of ``tests/test_recipes.py:18-19``, full width), in
     a temporary directory:
     a. the kernel at the chairs shapes, with phase 3's cases;
     b. the ResNet-18 encoder and DCGAN decoder of the seed-0 model, card
        against CPU, f32 (TF32 off) and bf16, eval and train mode; one f32 chairs train step at B 8,
        card against CPU, with phase 6's tolerances and 0 launches;
-    c. ``cli.gen_synthetic chairs --n_objects 100`` (6,200 PNGs); the train
+    c. ``cli.gen_synthetic chairs --n_objects 50`` (3,100 PNGs); the train
        split on the card (``DeviceChairs``, uint8) and a B 128 batch of the
        same draws against the host ``Chairs`` items, bitwise; ms a batch;
     d. the train CLI, bf16 B 128, 2 epochs x 20 steps: the loss falls, 0
@@ -152,7 +160,7 @@ result line is printed):
        stopped by SIGTERM and resumed, bitwise under ``cudnn.deterministic``;
        the host data path;
     e. ``cli.test_chairs_disentanglement --nt_pred 10`` on the bf16
-       checkpoint over the whole test split (930 sequences), 0 launches,
+       checkpoint over the whole test split (496 sequences), 0 launches,
        and its resume, bitwise;
     f. ``eval.chairs_swap.evaluate(model_bundle=...)`` on the f32 seed-0
        model: one cluster launch a batch; the Evaluator card against CPU on
@@ -186,14 +194,14 @@ result line is printed):
 13. SST (the recipe of ``tests/test_recipes.py:26-29``, full width:
     ``EncoderSST``, ``DecoderSSTSkip``, 16x16 S and T maps of 196 and 64
     channels, a 2-block ``ConvResnet`` at nf 512, 4 + 6 frames of 64x64,
-    B 128), in the same way (``sst_zone_arrays``, 29 zones x 1,600 days,
+    B 128), in the same way (``sst_zone_arrays``, 29 zones x 800 days,
     through ``SST(arrays=...)``):
     a. ``EncoderSST``, ``DecoderSSTSkip`` and ``ConvResnet`` of the seed-0
        model, card against CPU, as 12a; one f32 train step at B 8; one bf16
        forward at ``--zone_size 256``;
-    b. as 12b with ``DeviceZoneWindows`` (0.76 GB) and a B 128 batch;
+    b. as 12b with ``DeviceZoneWindows`` (0.38 GB) and a B 128 batch;
     c. as 12c;
-    d. ``eval.sst.evaluate`` on the bf16 checkpoint over zones 17-20 (1,220
+    d. ``eval.sst.evaluate`` on the bf16 checkpoint over zones 17-20 (580
        sequences, B 64): finite MSEs, SSIM in (0, 1], the ``evals.json``
        record, 0 launches;
     e. ``evaluate(model_bundle=...)`` on the f32 seed-0 model: 0 launches of
@@ -285,6 +293,8 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     mlp_resnet_rollout,
     mlp_resnet_rollout_reference,
     rollout_plan,
+    stream_active_clusters,
+    stream_library,
 )
 from spatiotemporal_variable_separation_tpu_torch.ops.ssim import ssim_map, ssim_per_frame
 from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
@@ -349,7 +359,7 @@ FLAGSHIP = dict(data="mnist", architecture="dcgan", code_size_s=128, code_size_t
                 enc_hidden_size=64, dec_hidden_size=64, res_hidden_size=512, n_blocks=1,
                 nt_cond=5, nt_pred=10, offset=5, batch_size=128, precision="bf16", seed=0,
                 fused_loss=True)  # bench.py:72-80
-TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 3, 20
+TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 3, 10
 # The loss after TRAIN_STEPS steps on one fixed batch, against the first
 # step's: 0.0306 measured on an H100 (129.7 -> 3.97); 0.1 leaves 3x room
 # for cuDNN's run-to-run atomics and the bf16 roundings.
@@ -371,7 +381,7 @@ N_TEST_DIGITS = 1_000   # synthetic test digits: 500 sequences (the reference ha
 TEST_SEQ_LEN = 100      # make_test_set's default, the reference's
 EVAL_B = 16             # the eval CLIs' default batch
 ARCHIVE_CAP = 256       # the CLIs' archives: the first 16 batches
-T95_MAX_BATCHES = 16    # the 95-frame protocol on the checkpoint: 256 of 500 sequences
+T95_MAX_BATCHES = 8     # the 95-frame protocol on the checkpoint: 128 of 500 sequences
 # The f32 bundle's runs, cut to these batches; the first 4 batches archived.
 BUNDLE_MAX_BATCHES = {"mnist_t10": 20, "mnist_swap_t10": 10, "mnist_t95": 8}
 BUNDLE_ARCHIVE_CAP = 64
@@ -422,6 +432,22 @@ def step_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     diff = (out.double() - ref.double()).abs().amax(dim=(1, 2))
     scale = ref.double().abs().amax(dim=(1, 2)).clamp_min(1e-30)
     return float((diff / scale).max())
+
+
+def card_plan(batch: int, code: int, hidden: int, n_blocks: int, **kw):
+    """``rollout_plan`` with the card's own count of streaming clusters that
+    fit at once, as ``mlp_resnet_rollout`` plans a call itself."""
+    return rollout_plan(batch, code, hidden, n_blocks,
+                        active_clusters=stream_active_clusters(batch, code, hidden, n_blocks),
+                        **kw)
+
+
+def plan_text(plan) -> str:
+    """C, R, the ring's stages, shared memory and waves of a plan."""
+    text = f"{plan.variant} C {plan.cluster} x R {plan.rows}, {plan.smem_bytes} B a CTA"
+    if plan.variant == "stream":
+        text += f", {plan.stages} ring stages, {plan.waves} wave(s)"
+    return text
 
 
 def cuda_ms(fn, reps: int = 15, inner: int = 10) -> float:
@@ -1220,7 +1246,7 @@ def evaluator_card_vs_cpu(dev, model, test_set) -> dict:
     cond, target = np.stack([c for c, _ in items]), np.stack([t for _, t in items])
     nt_cond = cond.shape[1]
     ev = Evaluator(model)
-    plan = rollout_plan(EVAL_B, *model.t_resnet.flat_params()[0].shape, 1)
+    plan = card_plan(EVAL_B, *model.t_resnet.flat_params()[0].shape, 1)
     reset_launch_counts()
     card, _, _ = ev.score(cond, target, nt_skip=nt_cond)
     torch.cuda.synchronize()
@@ -1499,8 +1525,8 @@ def eval_kernel_timing(t0, params, flops_peak: float, bw_peak: float) -> dict:
     n = EVAL_ROLLOUT_STEPS
     batch, code = t0.shape
     hidden = params[0].shape[1]
-    plans = {"cluster": rollout_plan(batch, code, hidden, 1),
-             "stream": rollout_plan(batch, code, hidden, 1, variant="stream")}
+    plans = {"cluster": card_plan(batch, code, hidden, 1),
+             "stream": card_plan(batch, code, hidden, 1, variant="stream")}
     runs = {v: [] for v in plans}
     for v in ("stream", "cluster", "cluster", "stream"):
         runs[v].append(cuda_ms(lambda: mlp_resnet_rollout(t0, params, n, plan=plans[v])))
@@ -1833,15 +1859,17 @@ def wave_eval_f32(dev, data_dir: str, work: str, test: wave_eq.WaveEq, flops_pea
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(mlp_resnet_rollout.variant_launches)
-    plan = rollout_plan(WAVE_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
+    plan = card_plan(WAVE_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
     smem = {(c, r): cluster_smem_bytes(cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks, c, r)
             for c, r in ((16, 8), (16, 4))}
     print(f"evaluate(model_bundle=f32 seed-0 WaveEq model, full width), {n_items} windows in "
           f"{n_batches} batches of {WAVE_EVAL_B}: {wall:.1f} s; mse_t40 {means['mse_t40']:.6f}; "
-          f"rollout plan {plan}; launches {launches} (one a batch); a cluster of 16 would need "
+          f"rollout plan {plan_text(plan)}; launches {launches} (one a batch); a resident "
+          f"cluster of 16 would need "
           f"{smem[16, 8]} bytes at 8 rows, {smem[16, 4]} at 4, over the {SMEM_LIMIT} a CTA has")
     check(np.isfinite(means["mse_t40"]), "f32 wave mse_t40")
-    check((plan.variant, plan.cluster) == ("stream", 1), f"the wave plan {plan} is not stream")
+    check(plan.variant == "stream" and plan.waves == 1,
+          f"the wave plan {plan} is not the streaming kernel in one wave")
     check(launches == {"cluster": 0, "stream": n_batches}, "one streaming launch a wave batch")
 
     card = eval_wave.frame_mses(xp, data_dir, model, cfg, WAVE_EVAL_B, WAVE_CPU_BATCHES)
@@ -1869,33 +1897,50 @@ def wave_eval_f32(dev, data_dir: str, work: str, test: wave_eq.WaveEq, flops_pea
           f"{rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs {abs_err:.3e} at max |t| "
           f"{float(ref.abs().max()):.3e}")
     check(rel <= ROLLOUT_REL_TOL, "streaming kernel disagrees with plain at the wave shape")
+    turns = stream_turns(t0, params, n, flops_peak, bw_peak)
+    check(turns["plan"] == plan, f"the timed plan {turns['plan']} is not the eval's {plan}")
+    return {"launches": launches, "plan": plan, "rel": rel, "abs": abs_err,
+            "n_batches": n_batches, **turns}
+
+
+def stream_turns(t0, params, n: int, flops_peak: float, bw_peak: float, reps: int = 10,
+                 inner: int = 5) -> dict:
+    """The streaming kernel at (t0, n), at the plan the card gives it, timed
+    in turns with the plain and ``addmm`` loops (kernel, plain, addmm, addmm,
+    plain, kernel), beside its bound; prints its plan and us a block-step."""
     b, code = t0.shape
-    hidden = params[0].shape[1]
+    hidden, n_blocks = params[0].shape[1], len(params) // 6
+    plan = card_plan(b, code, hidden, n_blocks)
+    check(plan.variant == "stream", f"{plan} is not the streaming kernel")
+    ref = mlp_resnet_rollout_reference(t0, params, n)
+    dev = t0.device
     bufs = (torch.empty(n, b, code, device=dev), torch.empty(b, hidden, device=dev),
             torch.empty(b, hidden, device=dev), torch.empty(b, code, device=dev))
     check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
-          "addmm loop disagrees at the wave shape")
+          "addmm loop disagrees")
     runs = {"stream": [], "plain": [], "addmm": []}
     fns = {"stream": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
            "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
            "addmm": lambda: addmm_loop(t0, params, n, *bufs)}
     for k in ("stream", "plain", "addmm", "addmm", "plain", "stream"):
-        runs[k].append(cuda_ms(fns[k], reps=10, inner=5))
+        runs[k].append(cuda_ms(fns[k], reps=reps, inner=inner))
     ms = {k: float(np.mean(v)) for k, v in runs.items()}
-    ops, nbytes = rollout_cost(b, code, hidden, cfg.n_blocks, n)
+    ops, nbytes = rollout_cost(b, code, hidden, n_blocks, n)
     t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
     bound = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"  at that shape, in turns: streaming kernel {ms['stream']:.4f} ms "
-          f"({runs['stream'][0]:.4f}, {runs['stream'][1]:.4f}), "
-          f"{ms['stream'] / ((n - 1) * cfg.n_blocks) * 1e3:.2f} us a block-step; plain loop "
-          f"{ms['plain']:.4f} ms; eager addmm loop {ms['addmm']:.4f} ms; bound {ops / 1e9:.3f} "
-          f"GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = {t_ops:.4f} ms, {nbytes / 1e6:.3f} MB "
-          f"at {bw_peak / 1e12:.2f} TB/s = {t_bytes:.4f} ms: {bound:.4f} ms by {bound_by}, "
-          f"{bound / ms['stream']:.1%} of it; addmm / kernel {ms['addmm'] / ms['stream']:.2f}")
-    return {"launches": launches, "plan": plan, "rel": rel, "abs": abs_err, "ms": ms,
-            "bound_ms": bound, "bound_by": bound_by, "n_batches": n_batches,
-            "shapes": f"B {b}, code {code}, H {hidden}, {cfg.n_blocks} blocks, {n} steps"}
+    block_step_us = ms["stream"] / ((n - 1) * n_blocks) * 1e3
+    print(f"  streaming kernel at B {b} x {n} steps x {n_blocks} blocks (code {code}, H "
+          f"{hidden}), {plan_text(plan)}, in turns: {ms['stream']:.4f} ms "
+          f"({runs['stream'][0]:.4f}, {runs['stream'][1]:.4f}), {block_step_us:.2f} us a "
+          f"block-step; plain loop {ms['plain']:.4f} ms; eager addmm loop {ms['addmm']:.4f} "
+          f"ms; bound {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
+          f"{t_ops:.4f} ms, {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
+          f"{t_bytes:.4f} ms: {bound:.4f} ms by {bound_by}, {bound / ms['stream']:.1%} of it; "
+          f"addmm / kernel {ms['addmm'] / ms['stream']:.2f}")
+    return {"plan": plan, "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "block_step_us": block_step_us,
+            "shapes": f"B {b}, code {code}, H {hidden}, {n_blocks} blocks, {n} steps"}
 
 
 def wave_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
@@ -1940,7 +1985,7 @@ def phase10_only(dev=None) -> None:
 CHAIRS_RECIPE = ("--data chairs --architecture resnet --decoder_architecture dcgan "
                  "--code_size_t 10 --gain_resnet 0.71 --lamb_ae 1 --lamb_s 1 --nt_cond 5 "
                  "--nt_pred 10 --offset 5 --batch_size 128").split()
-CHAIRS_OBJECTS = 100        # half gen_synthetic's default (200, the JAX records' stand-in)
+CHAIRS_OBJECTS = 50         # a quarter of gen_synthetic's default (200, the JAX records' stand-in)
 CHAIRS_EPOCHS, CHAIRS_STEPS = 2, 20
 # The CLI's loss at its last logged step (40) against its first (step 5), a
 # fresh batch every step: it must fall.
@@ -1948,7 +1993,7 @@ CHAIRS_LOSS_FALL = 1.0
 CHAIRS_RESUME_EPOCHS, CHAIRS_RESUME_STEPS, CHAIRS_RESUME_STOP_AFTER = 2, 6, 8
 CHAIRS_HOST_STEPS = 4
 CHAIRS_EVAL_B = 16          # cli.test_chairs_disentanglement's default batch
-CHAIRS_TEST_SEQS = 15 * 62  # the test split of 100 objects (15%), 62 start views each
+CHAIRS_TEST_SEQS = 8 * 62   # the test split of 50 objects (the last 8), 62 start views each
 CHAIRS_CPU_BATCHES = 2
 # An encoder, decoder or integrator, card against CPU, relative to the
 # output's max |.| (phases 11b, 12a, 13a).  f32 with TF32 off: sums in
@@ -2133,7 +2178,7 @@ def chairs_eval_f32(dev, data_dir: str, work: str, flops_peak: float, bw_peak: f
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(mlp_resnet_rollout.variant_launches)
-    plan = rollout_plan(CHAIRS_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
+    plan = card_plan(CHAIRS_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
     print(f"evaluate(model_bundle=f32 seed-0 chairs model, full width), {CHAIRS_TEST_SEQS} "
           f"sequences in {n_batches} batches of {CHAIRS_EVAL_B}: {wall:.1f} s "
           f"({CHAIRS_TEST_SEQS / wall:.1f} sequences/s); means {means}; rollout plan {plan} "
@@ -2221,7 +2266,7 @@ SST_RECIPE = ("--data sst --nt_cond 4 --nt_pred 6 --code_size_t 64 --code_size_s
               "--gain_resnet 0.71 --architecture encoderSST --decoder_architecture decoderSST "
               "--lamb_ae 1 --lamb_s 100 --lamb_t 5e-6 --skipco --n_blocks 2").split()
 TAXIBJ_DAYS = 120           # gen_synthetic's default days a year: 4 x 5,760 frames
-SST_ZONES, SST_DAYS = list(range(1, 30)), 1600   # gen_synthetic's defaults (~1.5 GB f64)
+SST_ZONES, SST_DAYS = list(range(1, 30)), 800    # gen_synthetic's zones, half its 1,600 days
 SST_TEST_ZONES = list(range(17, 21))
 SST_WIDE_ZONE = 256         # the full-basin stretch grid, one forward
 CORPUS_EPOCHS, CORPUS_STEPS = 2, 20
@@ -2232,7 +2277,7 @@ CORPUS_RESUME_STEPS, CORPUS_RESUME_STOP_AFTER = 6, 8   # 2 epochs x 6 steps, sto
 CORPUS_LOSS_FALL = 1.0
 TAXIBJ_EVAL_B, SST_EVAL_B = 128, 64   # the eval CLIs' default batches
 TAXIBJ_TEST_SEQS = 48 * 7 * 4        # the reference's test split (taxibj.py:253-254)
-SST_TEST_SEQS = 4 * 305              # zones 17-20, 320 test days each, windows of 4 + 10 + 1
+SST_TEST_SEQS = 4 * 145              # zones 17-20, 160 test days each, windows of 4 + 10 + 1
 CORPUS_CPU_B, CORPUS_CPU_BATCHES = 16, 2
 # SST's SSIM, card against CPU, per sequence.  The protocol renormalizes the
 # physical fields (~295 K) by the normalized data's min/max (~6 wide), so
@@ -2423,7 +2468,7 @@ def kernel_turns(t0, params, n, flops_peak: float, bw_peak: float) -> dict:
     with the streaming kernel, the plain and addmm loops, beside its bound."""
     batch, code = t0.shape
     hidden = params[0].shape[1]
-    plan = rollout_plan(batch, code, hidden, len(params) // 6)
+    plan = card_plan(batch, code, hidden, len(params) // 6)
     ref = mlp_resnet_rollout_reference(t0, params, n)
     reset_launch_counts()
     out = mlp_resnet_rollout(t0, params, n)
@@ -2435,7 +2480,7 @@ def kernel_turns(t0, params, n, flops_peak: float, bw_peak: float) -> dict:
             torch.empty(batch, hidden, device=dev), torch.empty(batch, code, device=dev))
     check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
           "addmm loop disagrees")
-    stream = rollout_plan(batch, code, hidden, len(params) // 6, variant="stream")
+    stream = card_plan(batch, code, hidden, len(params) // 6, variant="stream")
     fns = {"cluster": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
            "stream": lambda: mlp_resnet_rollout(t0, params, n, plan=stream),
            "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
@@ -2498,7 +2543,7 @@ def taxibj_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(mlp_resnet_rollout.variant_launches)
-    plan = rollout_plan(TAXIBJ_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
+    plan = card_plan(TAXIBJ_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
     print(f"evaluate(model_bundle=f32 seed-0 TaxiBJ model, full width), {TAXIBJ_TEST_SEQS} "
           f"sequences in {n_batches} batches of {TAXIBJ_EVAL_B}: {wall:.2f} s; means {means}; "
           f"rollout plan {plan} ({plan.grid // plan.cluster} clusters); launches {launches}")
@@ -2611,33 +2656,38 @@ def phase12_13_only(dev=None) -> None:
 
 
 def check_kernel_cases(cases: dict) -> dict:
-    """Phase 3: each case through the kernel its plan names (the serving and
-    chairs cases also through the streaming kernel, forced), against the
-    plain version; for a cluster plan, the kernel's own shared-memory layout
-    against the plan's.  Returns {(label, variant): (step-relative, abs)}."""
-    cluster_lib = cluster_library()
+    """Phase 3: each case through the kernel its plan names (the serving,
+    chairs and ragged-slice cases also through the streaming kernel,
+    forced), against the plain version; for each plan, the kernel's own
+    shared-memory layout against the plan's and the clusters that fit at
+    once.  Returns {(label, variant): (step-relative, abs)}."""
+    cluster_lib, stream_lib = cluster_library(), stream_library()
     errors = {}
     for label, (t0, params, n, expected) in cases.items():
         batch, code = t0.shape
         hidden, n_blocks = params[0].shape[1], len(params) // 6
-        plans = [rollout_plan(batch, code, hidden, n_blocks)]
-        check((plans[0].variant, plans[0].cluster) == expected,
+        plans = [card_plan(batch, code, hidden, n_blocks)]
+        # A streaming plan's cluster size follows the card's occupancy.
+        check((plans[0].variant, plans[0].cluster if expected[1] else None) == expected,
               f"plan {plans[0]} is not {expected} [{label}]")
-        if label.startswith(("serving", "chairs")):
-            plans.append(rollout_plan(batch, code, hidden, n_blocks, variant="stream"))
+        if label.startswith(("serving", "chairs", "ragged slice")):
+            plans.append(card_plan(batch, code, hidden, n_blocks, variant="stream"))
         ref = mlp_resnet_rollout_reference(t0, params, n)
         for plan in plans:
             if plan.variant == "cluster":
-                c_smem = cluster_lib.mlp_resnet_rollout_cluster_smem_bytes(
+                k_smem = cluster_lib.mlp_resnet_rollout_cluster_smem_bytes(
                     code, hidden, n_blocks, plan.cluster, plan.rows)
                 active = cluster_lib.mlp_resnet_rollout_cluster_max_active(
                     batch, code, hidden, n_blocks, plan.cluster, plan.rows)
-                print(f"plan [{label}]: {plan}; the kernel's own layout {c_smem} bytes; "
-                      f"at most {active} such clusters at once")
-                check(c_smem == plan.smem_bytes, "plan and kernel disagree on shared memory")
-                check(active >= 1, f"no cluster of the plan fits [{label}]")
             else:
-                print(f"plan [{label}]: {plan}")
+                k_smem = stream_lib.mlp_resnet_rollout_smem_bytes(
+                    code, hidden, n_blocks, plan.cluster, plan.rows, plan.stages)
+                active = stream_lib.mlp_resnet_rollout_max_active(
+                    batch, code, hidden, n_blocks, plan.cluster, plan.rows, plan.stages)
+            print(f"plan [{label}]: {plan_text(plan)}, grid {plan.grid}; the kernel's own "
+                  f"layout {k_smem} bytes; at most {active} such clusters at once")
+            check(k_smem == plan.smem_bytes, "plan and kernel disagree on shared memory")
+            check(active >= 1, f"no cluster of the plan fits [{label}]")
             out = mlp_resnet_rollout(t0, params, n, plan=plan)
             torch.cuda.synchronize()
             rel = step_rel_err(out, ref)
@@ -2704,7 +2754,7 @@ def main() -> None:
     params_main = model.t_resnet.flat_params()
     gen = torch.Generator().manual_seed(1)
     ragged = MLPResnet(20, 2, 512, generator=gen).to(dev)
-    cases = {  # label: (t0, params, n_steps, the plan's (variant, cluster))
+    cases = {  # label: (t0, params, n_steps, the plan's (variant, cluster or None))
         "serving B64 code20 H512 1 block 100 steps": (
             t0_main, params_main, N_FORECAST, ("cluster", 8)),
         "ragged B13 code20 H512 2 blocks 100 steps": (
@@ -2717,8 +2767,24 @@ def main() -> None:
         "4 blocks B64 code20 H512 100 steps": (
             torch.randn(B, 20, generator=gen).to(dev),
             MLPResnet(20, 4, 512, generator=gen).to(dev).flat_params(), N_FORECAST,
-            ("stream", 1)),
+            ("stream", None)),
     }
+    # The WaveEq eval's rollout (a random 3-block integrator; 10f runs the
+    # model's own), a ragged batch of it, and the kernels' 16-block limit,
+    # 30 steps: at random init 16 blocks a step reach ~1e19 by then.
+    wave_params = MLPResnet(32, 3, 512, generator=gen).to(dev).flat_params()
+    cases.update({
+        "wave B256 code32 H512 3 blocks 45 steps": (
+            torch.randn(WAVE_EVAL_B, 32, generator=gen).to(dev), wave_params,
+            WAVE_ROLLOUT_STEPS, ("stream", None)),
+        "ragged wave B250 code32 H512 3 blocks 45 steps": (
+            torch.randn(250, 32, generator=gen).to(dev), wave_params, WAVE_ROLLOUT_STEPS,
+            ("stream", None)),
+        "16 blocks B64 code20 H256 30 steps": (
+            torch.randn(B, 20, generator=gen).to(dev),
+            MLPResnet(20, 16, 256, generator=gen).to(dev).flat_params(), 30,
+            ("stream", None)),
+    })
     cases.update(chairs_kernel_cases(dev))
     errors = check_kernel_cases(cases)
     check({v for _, v in errors} == {"cluster", "stream"}, "both variants checked")
@@ -2798,14 +2864,14 @@ def main() -> None:
                         torch.empty(B, code, device=dev))
     lib_out = addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res)
     check(step_rel_err(lib_out, t_codes_plain) <= ROLLOUT_REL_TOL, "addmm loop disagrees")
-    plans = {"cluster": rollout_plan(B, code, hidden, n_blocks),
-             "stream": rollout_plan(B, code, hidden, n_blocks, variant="stream")}
+    plans = {"cluster": card_plan(B, code, hidden, n_blocks),
+             "stream": card_plan(B, code, hidden, n_blocks, variant="stream")}
     runs = {v: [] for v in plans}
     for v in ("stream", "cluster", "cluster", "stream"):
         runs[v].append(cuda_ms(
             lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST, plan=plans[v])))
     ms = {v: float(np.mean(t)) for v, t in runs.items()}
-    rows4 = rollout_plan(B, code, hidden, n_blocks, rows=4)
+    rows4 = card_plan(B, code, hidden, n_blocks, rows=4)
     rows4_ms = cuda_ms(lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST, plan=rows4))
     rows4_active = cluster_library().mlp_resnet_rollout_cluster_max_active(
         B, code, hidden, n_blocks, rows4.cluster, rows4.rows)
@@ -2829,6 +2895,10 @@ def main() -> None:
     print(f"  bound: {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
           f"{t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
           f"{t_bytes:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+    with torch.inference_mode():
+        t0_4 = model4.encode_t(cond_dev).contiguous()
+    serving4 = stream_turns(t0_4, model4.t_resnet.flat_params(), N_FORECAST, flops_peak,
+                            bw_peak, reps=3, inner=2)
     phase_done(5)
 
     # -- 6. the train step, card against CPU -------------------------------
@@ -2856,7 +2926,7 @@ def main() -> None:
                  "wave_ms": wave["ms"]["stream"], "wave_plain_ms": wave["ms"]["plain"],
                  "wave_addmm_loop_ms": wave["ms"]["addmm"], "wave_bound_ms": wave["bound_ms"],
                  "wave_bound_by": wave["bound_by"], "wave_max_step_rel_err": wave["rel"],
-                 "wave_max_abs_err": wave["abs"]}
+                 "wave_max_abs_err": wave["abs"], "wave_block_step_us": wave["block_step_us"]}
 
     # -- 11. 3D Chairs (11a ran with phase 3's cases) ---------------------------
     with tempfile.TemporaryDirectory() as work:
@@ -2924,6 +2994,11 @@ def main() -> None:
                           "wave and wave_partial CLIs on the bf16 checkpoints (10e)": 0,
                           "wave and wave_partial training (10d)": 0},
         **(wave_keys if v == "stream" else {}),
+        **({"serving4_shapes": serving4["shapes"], "serving4_plan": serving4["plan"]._asdict(),
+            "serving4_ms": serving4["ms"]["stream"], "serving4_plain_ms": serving4["ms"]["plain"],
+            "serving4_addmm_loop_ms": serving4["ms"]["addmm"],
+            "serving4_bound_ms": serving4["bound_ms"], "serving4_bound_by": serving4["bound_by"]}
+           if v == "stream" else {}),
         **chairs_keys(v),
         "launches_taxibj": {
             "taxibj evaluate(model_bundle=f32 seed 0), whole test split (12e)":

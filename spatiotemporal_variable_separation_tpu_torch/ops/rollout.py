@@ -14,9 +14,14 @@ small residual MLP (reference ``var_sep/networks/model.py:78-83``).
     the whole rollout, each CTA a 1/C slice of the hidden columns.  C is the
     smallest of 1, 2, 4, 8, 16 whose slices and activations fit one CTA's
     232,448 bytes; the cluster serves ``rows`` batch rows.
-  - ``"stream"`` (``csrc/mlp_resnet_rollout.cu``): one block per 8 batch
-    rows streams the weights from L2 every step; it takes the weights that
-    no cluster can hold (e.g. 4 blocks at hidden 512).
+  - ``"stream"`` (``csrc/mlp_resnet_rollout.cu``): the same column split
+    over a cluster of C CTAs, with W1, the biases and W3 resident and every
+    block's W2 slice streamed from L2 through a ring of ``STREAM_STAGES``
+    chunks fed by TMA bulk copies; it takes every shape no resident cluster
+    holds (e.g. WaveEq's 3 blocks at hidden 512).  C and the row tile R
+    (4 to 32, a multiple of 4) give the fewest waves of clusters the card
+    runs at once, then the least work a CTA.  ``pack_w2`` lays W2 out for
+    it, once per call.
 
 * ``mlp_resnet_rollout`` runs the plain version for a tensor on the CPU and
   launches the planned kernel for a tensor on the card; a failed launch
@@ -33,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -41,17 +46,36 @@ from spatiotemporal_variable_separation_tpu_torch.ops import _build
 
 SMEM_LIMIT = 232_448          # bytes of shared memory one CTA may use on an H100
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-CLUSTER_THREADS = 256         # threads per CTA of the cluster kernel
+CLUSTER_THREADS = 256         # threads per CTA of either kernel
 MAX_BLOCKS = 16               # MLP-ResNet blocks either kernel takes
-STREAM_ROWS = 8               # batch rows per block of the streaming kernel
+STREAM_ROWS = tuple(range(4, 33, 4))  # row tiles the streaming kernel is built for
+STREAM_STAGES = 2             # W2 chunks in the streaming kernel's ring
+STREAM_GROUP_ROWS = 16        # W2 rows one thread group takes from a chunk
+STREAM_GROUP_COLS = 2         # W2 columns a thread of the W2 product takes
+# Clusters of C CTAs that an H100 SXM runs at once at one CTA an SM, for a
+# plan made off the card (cudaOccupancyMaxActiveClusters of the streaming
+# kernel on an H100 80GB HBM3); on the card ``mlp_resnet_rollout`` asks it of
+# the launch itself.
+H100_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
 class RolloutPlan(NamedTuple):
     variant: str     # "cluster" or "stream"
-    cluster: int     # CTAs per cluster; 1 for "stream"
-    rows: int        # batch rows per cluster ("cluster") or per block ("stream")
+    cluster: int     # CTAs per cluster
+    rows: int        # batch rows per cluster
     smem_bytes: int  # dynamic shared memory of one CTA
     grid: int        # CTAs launched: a whole number of clusters
+    stages: int = 0  # W2 chunks in the ring ("stream"); 0 for "cluster"
+    waves: int = 0   # rounds of clusters the card runs ("stream"); 0 for "cluster"
+
+
+class StreamLayout(NamedTuple):
+    slice: int       # S: hidden columns a rank owns
+    slice_pad: int   # S rounded up to 4
+    k_groups: int    # thread groups over the rows of a W2 chunk
+    chunk_rows: int  # W2 rows a chunk holds: STREAM_GROUP_ROWS * k_groups
+    n_chunks: int    # chunks of one block's W2 slice
+    hidden_pad: int  # n_chunks * chunk_rows: W2 rows, zero-padded
 
 
 def _round_up4(x: int) -> int:
@@ -73,17 +97,52 @@ def cluster_smem_bytes(code: int, hidden: int, n_blocks: int, cluster: int,
     return 4 * (n_blocks * per_block + activations)
 
 
+def stream_layout(hidden: int, cluster: int) -> StreamLayout:
+    """How the streaming kernel cuts a rank's W2 slice into chunks; its
+    ``make_layout`` computes the same."""
+    s = -(-hidden // cluster)
+    sp = _round_up4(s)
+    k_groups = max(1, min(CLUSTER_THREADS // (sp // STREAM_GROUP_COLS),
+                          -(-hidden // STREAM_GROUP_ROWS)))
+    chunk_rows = STREAM_GROUP_ROWS * k_groups
+    n_chunks = -(-hidden // chunk_rows)
+    return StreamLayout(s, sp, k_groups, chunk_rows, n_chunks, n_chunks * chunk_rows)
+
+
+def stream_smem_bytes(code: int, hidden: int, n_blocks: int, cluster: int, rows: int,
+                      stages: int = STREAM_STAGES) -> int:
+    """Dynamic shared memory of one CTA of the streaming kernel, in bytes:
+    every block's resident W1, b1, b2, W3, b3 slices, the ring of W2 chunks,
+    the activations and the ring's mbarriers.  The kernel's ``make_layout``
+    computes the same."""
+    lay = stream_layout(hidden, cluster)
+    sp = lay.slice_pad
+    k3_groups = min(max(1, CLUSTER_THREADS // code), sp)
+    per_block = 2 * code * sp + 2 * sp + _round_up4(code)
+    ring = stages * lay.chunk_rows * sp
+    scratch = max(lay.k_groups * sp, k3_groups * code)
+    activations = rows * (code + lay.hidden_pad + sp + scratch + cluster * code)
+    barriers = 4 * stages * lay.k_groups  # a full and an empty mbarrier a slot and group
+    return 4 * (n_blocks * per_block + ring + activations + barriers)
+
+
 def rollout_plan(batch: int, code: int, hidden: int, n_blocks: int,
-                 variant: Optional[str] = None, rows: Optional[int] = None) -> RolloutPlan:
+                 variant: Optional[str] = None, rows: Optional[int] = None,
+                 active_clusters: Optional[Callable[[int, int], int]] = None) -> RolloutPlan:
     """The kernel, cluster size, row tile and shared memory of a rollout.
 
     By default the cluster kernel at the smallest cluster whose slices fit,
     8 rows a cluster, else the streaming kernel.  8 rows, not 4: at the
     serving batch of 64 and clusters of 8, 4 rows need 16 clusters, and an
     H100 runs at most 15 such clusters at once, so the last runs in a second
-    wave (``chip_smoke.py`` times both).  ``variant`` and ``rows`` force a
-    choice, to measure one against the other; a forced cluster that fits no
-    cluster size raises.
+    wave (``chip_smoke.py`` times both).
+
+    The streaming kernel takes the cluster size and row tile with the fewest
+    waves, ``active_clusters(cluster, rows)`` being the number of such
+    clusters the card runs at once (default ``H100_ACTIVE_CLUSTERS``), then
+    the least work a CTA (rows x slice), then the most rows.  ``variant``
+    and ``rows`` force a choice, to measure one against the other; a forced
+    choice that fits nowhere raises.
     """
     if not 1 <= n_blocks <= MAX_BLOCKS:
         raise ValueError(f"the rollout kernels take 1 to {MAX_BLOCKS} blocks, got {n_blocks}")
@@ -100,13 +159,48 @@ def rollout_plan(batch: int, code: int, hidden: int, n_blocks: int,
         if variant == "cluster":
             raise ValueError(f"no cluster of up to {CLUSTER_SIZES[-1]} CTAs holds "
                              f"{n_blocks} block(s) at code {code}, hidden {hidden}")
-    if rows not in (None, STREAM_ROWS):
-        raise ValueError(f"the streaming kernel takes {STREAM_ROWS} rows, got {rows}")
-    smem = 4 * STREAM_ROWS * (code + 2 * hidden)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"no rollout kernel takes hidden {hidden}: the streaming "
-                         f"kernel's activations need {smem} bytes")
-    return RolloutPlan("stream", 1, STREAM_ROWS, smem, -(-batch // STREAM_ROWS))
+    if rows is not None and rows not in STREAM_ROWS:
+        raise ValueError(f"the streaming kernel takes 4 to 32 rows, a multiple of 4, "
+                         f"got {rows}")
+    active_clusters = active_clusters or (lambda c, r: H100_ACTIVE_CLUSTERS[c])
+    best = None
+    for c in CLUSTER_SIZES:
+        sp = stream_layout(hidden, c).slice_pad
+        if sp > STREAM_GROUP_COLS * CLUSTER_THREADS:  # a thread a column pair of W2
+            continue
+        for r in STREAM_ROWS if rows is None else (rows,):
+            smem = stream_smem_bytes(code, hidden, n_blocks, c, r)
+            if smem > SMEM_LIMIT:
+                break  # more rows need more
+            fit = active_clusters(c, r)
+            if fit < 1:
+                continue
+            n_clusters = -(-batch // r)
+            waves = -(-n_clusters // fit)
+            key = (waves, r * sp, -r)
+            if best is None or key < best[0]:
+                best = (key, RolloutPlan("stream", c, r, smem, n_clusters * c,
+                                         STREAM_STAGES, waves))
+    if best is None:
+        raise ValueError(f"no rollout kernel takes {n_blocks} block(s) at code {code}, "
+                         f"hidden {hidden}: the streaming kernel's slices and activations "
+                         f"exceed {SMEM_LIMIT} bytes a CTA at every cluster size")
+    return best[1]
+
+
+def pack_w2(params: Sequence[torch.Tensor], cluster: int) -> torch.Tensor:
+    """Every block's W2 as the streaming kernel reads it: (n_blocks, cluster,
+    hidden_pad, slice_pad), where [b, j, k, s] = W2_b[k, j*S + s] for
+    k < hidden and j*S + s < hidden, else 0 -- so that each chunk of a rank's
+    slice is one contiguous, 16-byte-aligned run for a bulk copy."""
+    hidden = params[0].shape[1]
+    lay = stream_layout(hidden, cluster)
+    n_blocks = len(params) // 6
+    packed = params[2].new_zeros((n_blocks, cluster, lay.hidden_pad, lay.slice_pad))
+    for b in range(n_blocks):
+        w2 = torch.nn.functional.pad(params[6 * b + 2], (0, cluster * lay.slice - hidden))
+        packed[b, :, :hidden, :lay.slice] = w2.view(hidden, cluster, lay.slice).transpose(0, 1)
+    return packed
 
 
 def mlp_resnet_rollout_reference(t0: torch.Tensor, params: Sequence[torch.Tensor],
@@ -159,8 +253,12 @@ def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     vp, i = ctypes.c_void_p, ctypes.c_int
     if name == "mlp_resnet_rollout":
-        lib.mlp_resnet_rollout_f32.argtypes = [vp, vp, i, vp, i, i, i, i, vp]
+        lib.mlp_resnet_rollout_f32.argtypes = [vp, vp, vp, i, vp, i, i, i, i, i, i, i, vp]
         lib.mlp_resnet_rollout_f32.restype = i
+        lib.mlp_resnet_rollout_smem_bytes.argtypes = [i, i, i, i, i, i]
+        lib.mlp_resnet_rollout_smem_bytes.restype = i
+        lib.mlp_resnet_rollout_max_active.argtypes = [i, i, i, i, i, i, i]
+        lib.mlp_resnet_rollout_max_active.restype = i
     else:
         lib.mlp_resnet_rollout_cluster_f32.argtypes = [vp, vp, i, vp, i, i, i, i, i, i, vp]
         lib.mlp_resnet_rollout_cluster_f32.restype = i
@@ -179,33 +277,65 @@ def cluster_library() -> ctypes.CDLL:
     return _library("mlp_resnet_rollout_cluster")
 
 
+def stream_library() -> ctypes.CDLL:
+    """The streaming kernel's library, for its shared-memory and occupancy queries."""
+    return _library("mlp_resnet_rollout")
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_active(batch: int, code: int, hidden: int, n_blocks: int, cluster: int,
+                   rows: int) -> int:
+    active = stream_library().mlp_resnet_rollout_max_active(
+        batch, code, hidden, n_blocks, cluster, rows, STREAM_STAGES)
+    if active < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters of the streaming kernel failed "
+                           f"(code {-active}) at cluster {cluster}, {rows} rows")
+    return active
+
+
+def stream_active_clusters(batch: int, code: int, hidden: int,
+                           n_blocks: int) -> Callable[[int, int], int]:
+    """``active_clusters`` for ``rollout_plan`` from the current card: the
+    streaming clusters of this shape that fit at once, as
+    cudaOccupancyMaxActiveClusters reports them for the launch itself.  Each
+    shape is asked once and remembered."""
+    return functools.partial(_stream_active, batch, code, hidden, n_blocks)
+
+
 def mlp_resnet_rollout(t0: torch.Tensor, params: Sequence[torch.Tensor], n_steps: int,
                        plan: Optional[RolloutPlan] = None) -> torch.Tensor:
     """Rollout (B, code) -> (n_steps, B, code), t0 included.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel that
-    ``plan`` (default ``rollout_plan`` of the shapes) names on the current
-    stream, or raise.
+    ``plan`` (default ``rollout_plan`` of the shapes, with the card's own
+    count of streaming clusters that fit) names on the current stream, or
+    raise.
     """
     n_blocks, batch, code, hidden = _check_inputs(t0, params, n_steps)
     if t0.device.type == "cpu":
         return mlp_resnet_rollout_reference(t0, params, n_steps)
     if t0.device.type != "cuda":
         raise ValueError(f"mlp_resnet_rollout has no kernel for device {t0.device}")
-    if plan is None:
-        plan = rollout_plan(batch, code, hidden, n_blocks)
-    name = "mlp_resnet_rollout" if plan.variant == "stream" else "mlp_resnet_rollout_cluster"
-    lib = _library(name)
-    out = torch.empty((n_steps, batch, code), dtype=torch.float32, device=t0.device)
-    ptrs = (ctypes.c_void_p * len(params))(*(p.data_ptr() for p in params))
-    args = (t0.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), n_blocks, out.data_ptr(),
-            batch, code, hidden, n_steps)
     with torch.cuda.device(t0.device):
+        if plan is None:
+            plan = rollout_plan(batch, code, hidden, n_blocks,
+                                active_clusters=stream_active_clusters(batch, code, hidden,
+                                                                       n_blocks))
+        name = "mlp_resnet_rollout" if plan.variant == "stream" else "mlp_resnet_rollout_cluster"
+        lib = _library(name)
+        out = torch.empty((n_steps, batch, code), dtype=torch.float32, device=t0.device)
+        ptrs = (ctypes.c_void_p * len(params))(*(p.data_ptr() for p in params))
+        args = (t0.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p))
+        shape = (n_blocks, out.data_ptr(), batch, code, hidden, n_steps, plan.cluster,
+                 plan.rows)
         stream = torch.cuda.current_stream().cuda_stream
         if plan.variant == "stream":
-            err = lib.mlp_resnet_rollout_f32(*args, stream)
+            # w2 is freed on return; the caching allocator reuses its memory only
+            # for work queued on this stream after the kernel.
+            w2 = pack_w2(params, plan.cluster)
+            err = lib.mlp_resnet_rollout_f32(*args, w2.data_ptr(), *shape, plan.stages, stream)
         else:
-            err = lib.mlp_resnet_rollout_cluster_f32(*args, plan.cluster, plan.rows, stream)
+            err = lib.mlp_resnet_rollout_cluster_f32(*args, *shape, stream)
     if err != 0:
         message = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed ({plan}): {message} (code {err})")

@@ -23,7 +23,11 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     cluster_smem_bytes,
     mlp_resnet_rollout,
     mlp_resnet_rollout_reference,
+    STREAM_STAGES,
+    pack_w2,
     rollout_plan,
+    stream_layout,
+    stream_smem_bytes,
 )
 
 ATOL = 1e-5
@@ -31,7 +35,7 @@ ATOL = 1e-5
 PLANS = [  # batch, code, hidden, n_blocks -> variant, cluster
     pytest.param(64, 20, 512, 1, "cluster", 8, id="serving"),
     pytest.param(13, 20, 512, 2, "cluster", 16, id="2-blocks-H512"),
-    pytest.param(64, 20, 512, 4, "stream", 1, id="4-blocks-H512"),
+    pytest.param(64, 20, 512, 4, "stream", 16, id="4-blocks-H512"),
     pytest.param(32, 20, 64, 1, "cluster", 1, id="H64"),
     pytest.param(13, 20, 516, 1, "cluster", 8, id="H516-ragged-slice"),
 ]
@@ -77,8 +81,11 @@ def test_cluster_grid_is_whole_clusters(batch, rows):
 
 
 def test_forced_stream_plan():
+    # 6 clusters of 16 CTAs at 12 rows: one wave where 7 fit at once, and the
+    # least work a CTA of any one-wave plan (12 rows x 32 columns).
     plan = rollout_plan(64, 20, 512, 1, variant="stream")
-    assert plan == ("stream", 1, 8, 4 * 8 * (20 + 2 * 512), 8)
+    assert plan == ("stream", 16, 12, stream_smem_bytes(20, 512, 1, 16, 12), 96,
+                    STREAM_STAGES, 1)
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -87,8 +94,8 @@ def test_forced_stream_plan():
     (dict(n_blocks=4, variant="cluster"), "no cluster"),
     (dict(variant="tensor"), "variant must be"),
     (dict(rows=5), "4 or 8 rows"),
-    (dict(variant="stream", rows=4), "streaming kernel takes 8 rows"),
-    (dict(hidden=4096), "no rollout kernel takes hidden 4096"),
+    (dict(variant="stream", rows=6), "streaming kernel takes 4 to 32 rows"),
+    (dict(hidden=8192), r"no rollout kernel takes 1 block\(s\) at code 20, hidden 8192"),
 ])
 def test_plan_rejects(kwargs, match):
     args = dict(batch=64, code=20, hidden=512, n_blocks=1)
@@ -97,11 +104,17 @@ def test_plan_rejects(kwargs, match):
         rollout_plan(**args)
 
 
-def sliced_rollout(t0, params, n_steps, cluster):
-    """The cluster kernel's arithmetic in PyTorch: rank j holds hidden columns
+def sliced_rollout(t0, params, n_steps, cluster, stream=False, rows=None):
+    """The cluster kernels' arithmetic in PyTorch: rank j holds hidden columns
     [j*S, j*S + S) clipped to hidden (S = ceil(hidden / cluster)), padded with
     zero weights to a multiple of 4; h1 is gathered from every rank's real
-    columns; the partial residuals are summed in rank order 0..C-1."""
+    columns; the partial residuals are summed in rank order 0..C-1.
+
+    ``stream=True`` takes the streaming kernel's W2 product: each rank's W2
+    slice as ``pack_w2`` lays it out, cut into chunks of ``chunk_rows`` rows;
+    thread group g sums its 16 rows of every chunk in stream order, and the
+    groups' sums meet in order g = 0, 1, ....  ``rows`` runs the batch in
+    tiles of that many rows, the ragged last one padded with zero rows."""
     hidden = params[0].shape[1]
     s = -(-hidden // cluster)
     sp = -(-s // 4) * 4
@@ -109,12 +122,36 @@ def sliced_rollout(t0, params, n_steps, cluster):
     for j in range(cluster):
         lo = min(hidden, j * s)
         slices.append((lo, min(hidden, lo + s) - lo))
+    if rows is not None:
+        pad = -t0.shape[0] % rows
+        return sliced_rollout(torch.cat([t0, t0.new_zeros(pad, t0.shape[1])]), params,
+                              n_steps, cluster, stream)[:, :t0.shape[0]]
+    if stream:
+        lay = stream_layout(hidden, cluster)
+        packed = pack_w2(params, cluster)
+        group_rows = lay.chunk_rows // lay.k_groups
 
     def pad(w, lo, width, dim):  # the rank's columns (dim 1) or rows (dim 0), zero-padded to sp
         piece = w.narrow(dim, lo, width)
         shape = list(piece.shape)
         shape[dim] = sp - width
         return torch.cat([piece, torch.zeros(shape)], dim=dim)
+
+    def w2_product(h1, w2, b, j, lo, width):
+        if not stream:
+            return h1 @ pad(w2, lo, width, 1)
+        h1 = torch.cat([h1, h1.new_zeros(h1.shape[0], lay.hidden_pad - hidden)], dim=1)
+        groups = []
+        for g in range(lay.k_groups):
+            acc = torch.zeros(h1.shape[0], sp)
+            for c in range(lay.n_chunks):  # stream order
+                k0 = c * lay.chunk_rows + g * group_rows
+                acc = acc + h1[:, k0:k0 + group_rows] @ packed[b, j, k0:k0 + group_rows]
+            groups.append(acc)
+        total = groups[0]
+        for acc in groups[1:]:
+            total = total + acc
+        return total
 
     t, out = t0, [t0]
     for _ in range(n_steps - 1):
@@ -124,8 +161,8 @@ def sliced_rollout(t0, params, n_steps, cluster):
                             for lo, w in slices], dim=1)
             assert h1.shape[1] == hidden
             total = None
-            for lo, w in slices:
-                h2 = torch.relu(h1 @ pad(w2, lo, w, 1) + pad(b2[None], lo, w, 1))
+            for j, (lo, w) in enumerate(slices):
+                h2 = torch.relu(w2_product(h1, w2, i // 6, j, lo, w) + pad(b2[None], lo, w, 1))
                 part = h2 @ pad(w3, lo, w, 0)
                 total = part if total is None else total + part
             t = t + (total + b3)
