@@ -30,7 +30,10 @@ result line is printed):
    streaming kernel forced), 4 blocks at H 512 (streaming), the WaveEq
    eval's shape (B 256 x 45 steps, code 32, H 512, 3 blocks; streaming) and
    a ragged B 250 of it, 16 blocks at H 256 (the kernels' limit; streaming,
-   30 steps), and phase 11a's chairs shapes (code 10, H 512, 1 block at B 16
+   30 steps), 8 blocks at code 64, H 512 and at code 20, H 2048 (streaming
+   with W1, the biases and W3 read from L2: no cluster holds their slices
+   beside the ring; 30 and 20 steps, B 64 and a ragged B 50), and phase 11a's
+   chairs shapes (code 10, H 512, 1 block at B 16
    x 15 and B 64 x 100; C 8, and the streaming kernel forced); for each
    plan, the kernel's own shared-memory layout against the plan's and the
    clusters that fit at once;
@@ -51,7 +54,8 @@ result line is printed):
    the serving shapes, in turns (stream, cluster, cluster, stream); the
    cluster kernel at 4 rows a cluster; the plain loop, the eager
    ``torch.addmm`` loop and the bound; the streaming kernel at the 4-block
-   serving shape beside its plain and ``addmm`` loops and its bound;
+   serving shape and at phase 3's 8 blocks of code 64 (W1, biases and W3
+   from L2), each beside its plain and ``addmm`` loops and its bound;
 6. the train step, card against CPU: full width, f32 with TF32 off, B 8,
    5+10 frames, offset 5, ``fused_loss``; the same weights, batch and
    ``t_random`` through ``make_train_step`` on the card and on the CPU.
@@ -65,7 +69,7 @@ result line is printed):
    that falls, params and BatchNorm statistics that move, and no rollout
    launch; then the trained weights, served under ``mixed`` (bf16 convs,
    the f32 rollout), answer one request through the cluster kernel (1 launch).
-   Timing: 3 warm-up and 10 timed steps, bf16 and f32 with TF32 off,
+   Timing: 3 warm-up and 20 timed steps, bf16 and f32 with TF32 off,
    ms/step and samples/s; one step split by CUDA events into forward,
    backward and optimizer; a torch.profiler trace (top device kernels, the
    device's idle share); the step's FLOPs counted by
@@ -152,7 +156,7 @@ result line is printed):
     b. the ResNet-18 encoder and DCGAN decoder of the seed-0 model, card
        against CPU, f32 (TF32 off) and bf16, eval and train mode; one f32 chairs train step at B 8,
        card against CPU, with phase 6's tolerances and 0 launches;
-    c. ``cli.gen_synthetic chairs --n_objects 50`` (3,100 PNGs); the train
+    c. ``cli.gen_synthetic chairs --n_objects 100`` (6,200 PNGs); the train
        split on the card (``DeviceChairs``, uint8) and a B 128 batch of the
        same draws against the host ``Chairs`` items, bitwise; ms a batch;
     d. the train CLI, bf16 B 128, 2 epochs x 20 steps: the loss falls, 0
@@ -160,7 +164,7 @@ result line is printed):
        stopped by SIGTERM and resumed, bitwise under ``cudnn.deterministic``;
        the host data path;
     e. ``cli.test_chairs_disentanglement --nt_pred 10`` on the bf16
-       checkpoint over the whole test split (496 sequences), 0 launches,
+       checkpoint over the whole test split (930 sequences), 0 launches,
        and its resume, bitwise;
     f. ``eval.chairs_swap.evaluate(model_bundle=...)`` on the f32 seed-0
        model: one cluster launch a batch; the Evaluator card against CPU on
@@ -194,14 +198,14 @@ result line is printed):
 13. SST (the recipe of ``tests/test_recipes.py:26-29``, full width:
     ``EncoderSST``, ``DecoderSSTSkip``, 16x16 S and T maps of 196 and 64
     channels, a 2-block ``ConvResnet`` at nf 512, 4 + 6 frames of 64x64,
-    B 128), in the same way (``sst_zone_arrays``, 29 zones x 800 days,
+    B 128), in the same way (``sst_zone_arrays``, 29 zones x 1,600 days,
     through ``SST(arrays=...)``):
     a. ``EncoderSST``, ``DecoderSSTSkip`` and ``ConvResnet`` of the seed-0
        model, card against CPU, as 12a; one f32 train step at B 8; one bf16
        forward at ``--zone_size 256``;
-    b. as 12b with ``DeviceZoneWindows`` (0.38 GB) and a B 128 batch;
+    b. as 12b with ``DeviceZoneWindows`` (0.76 GB) and a B 128 batch;
     c. as 12c;
-    d. ``eval.sst.evaluate`` on the bf16 checkpoint over zones 17-20 (580
+    d. ``eval.sst.evaluate`` on the bf16 checkpoint over zones 17-20 (1,220
        sequences, B 64): finite MSEs, SSIM in (0, 1], the ``evals.json``
        record, 0 launches;
     e. ``evaluate(model_bundle=...)`` on the f32 seed-0 model: 0 launches of
@@ -288,6 +292,7 @@ from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPRe
 from spatiotemporal_variable_separation_tpu_torch.ops import _build
 from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     SMEM_LIMIT,
+    STREAM_STAGES,
     cluster_library,
     cluster_smem_bytes,
     mlp_resnet_rollout,
@@ -359,7 +364,7 @@ FLAGSHIP = dict(data="mnist", architecture="dcgan", code_size_s=128, code_size_t
                 enc_hidden_size=64, dec_hidden_size=64, res_hidden_size=512, n_blocks=1,
                 nt_cond=5, nt_pred=10, offset=5, batch_size=128, precision="bf16", seed=0,
                 fused_loss=True)  # bench.py:72-80
-TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 3, 10
+TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 3, 20
 # The loss after TRAIN_STEPS steps on one fixed batch, against the first
 # step's: 0.0306 measured on an H100 (129.7 -> 3.97); 0.1 leaves 3x room
 # for cuDNN's run-to-run atomics and the bf16 roundings.
@@ -381,7 +386,7 @@ N_TEST_DIGITS = 1_000   # synthetic test digits: 500 sequences (the reference ha
 TEST_SEQ_LEN = 100      # make_test_set's default, the reference's
 EVAL_B = 16             # the eval CLIs' default batch
 ARCHIVE_CAP = 256       # the CLIs' archives: the first 16 batches
-T95_MAX_BATCHES = 8     # the 95-frame protocol on the checkpoint: 128 of 500 sequences
+T95_MAX_BATCHES = 16    # the 95-frame protocol on the checkpoint: 256 of 500 sequences
 # The f32 bundle's runs, cut to these batches; the first 4 batches archived.
 BUNDLE_MAX_BATCHES = {"mnist_t10": 20, "mnist_swap_t10": 10, "mnist_t95": 8}
 BUNDLE_ARCHIVE_CAP = 64
@@ -446,7 +451,8 @@ def plan_text(plan) -> str:
     """C, R, the ring's stages, shared memory and waves of a plan."""
     text = f"{plan.variant} C {plan.cluster} x R {plan.rows}, {plan.smem_bytes} B a CTA"
     if plan.variant == "stream":
-        text += f", {plan.stages} ring stages, {plan.waves} wave(s)"
+        text += (f", {STREAM_STAGES} ring stages, {plan.waves} wave(s), W1/biases/W3 "
+                 f"{'resident' if plan.resident else 'from L2'}")
     return text
 
 
@@ -1985,7 +1991,7 @@ def phase10_only(dev=None) -> None:
 CHAIRS_RECIPE = ("--data chairs --architecture resnet --decoder_architecture dcgan "
                  "--code_size_t 10 --gain_resnet 0.71 --lamb_ae 1 --lamb_s 1 --nt_cond 5 "
                  "--nt_pred 10 --offset 5 --batch_size 128").split()
-CHAIRS_OBJECTS = 50         # a quarter of gen_synthetic's default (200, the JAX records' stand-in)
+CHAIRS_OBJECTS = 100        # half gen_synthetic's default (200, the JAX records' stand-in)
 CHAIRS_EPOCHS, CHAIRS_STEPS = 2, 20
 # The CLI's loss at its last logged step (40) against its first (step 5), a
 # fresh batch every step: it must fall.
@@ -1993,7 +1999,7 @@ CHAIRS_LOSS_FALL = 1.0
 CHAIRS_RESUME_EPOCHS, CHAIRS_RESUME_STEPS, CHAIRS_RESUME_STOP_AFTER = 2, 6, 8
 CHAIRS_HOST_STEPS = 4
 CHAIRS_EVAL_B = 16          # cli.test_chairs_disentanglement's default batch
-CHAIRS_TEST_SEQS = 8 * 62   # the test split of 50 objects (the last 8), 62 start views each
+CHAIRS_TEST_SEQS = 15 * 62  # the test split of 100 objects (15%), 62 start views each
 CHAIRS_CPU_BATCHES = 2
 # An encoder, decoder or integrator, card against CPU, relative to the
 # output's max |.| (phases 11b, 12a, 13a).  f32 with TF32 off: sums in
@@ -2266,7 +2272,7 @@ SST_RECIPE = ("--data sst --nt_cond 4 --nt_pred 6 --code_size_t 64 --code_size_s
               "--gain_resnet 0.71 --architecture encoderSST --decoder_architecture decoderSST "
               "--lamb_ae 1 --lamb_s 100 --lamb_t 5e-6 --skipco --n_blocks 2").split()
 TAXIBJ_DAYS = 120           # gen_synthetic's default days a year: 4 x 5,760 frames
-SST_ZONES, SST_DAYS = list(range(1, 30)), 800    # gen_synthetic's zones, half its 1,600 days
+SST_ZONES, SST_DAYS = list(range(1, 30)), 1600   # gen_synthetic's defaults (~1.5 GB f64)
 SST_TEST_ZONES = list(range(17, 21))
 SST_WIDE_ZONE = 256         # the full-basin stretch grid, one forward
 CORPUS_EPOCHS, CORPUS_STEPS = 2, 20
@@ -2277,7 +2283,7 @@ CORPUS_RESUME_STEPS, CORPUS_RESUME_STOP_AFTER = 6, 8   # 2 epochs x 6 steps, sto
 CORPUS_LOSS_FALL = 1.0
 TAXIBJ_EVAL_B, SST_EVAL_B = 128, 64   # the eval CLIs' default batches
 TAXIBJ_TEST_SEQS = 48 * 7 * 4        # the reference's test split (taxibj.py:253-254)
-SST_TEST_SEQS = 4 * 145              # zones 17-20, 160 test days each, windows of 4 + 10 + 1
+SST_TEST_SEQS = 4 * 305              # zones 17-20, 320 test days each, windows of 4 + 10 + 1
 CORPUS_CPU_B, CORPUS_CPU_BATCHES = 16, 2
 # SST's SSIM, card against CPU, per sequence.  The protocol renormalizes the
 # physical fields (~295 K) by the normalized data's min/max (~6 wide), so
@@ -2667,9 +2673,11 @@ def check_kernel_cases(cases: dict) -> dict:
         batch, code = t0.shape
         hidden, n_blocks = params[0].shape[1], len(params) // 6
         plans = [card_plan(batch, code, hidden, n_blocks)]
-        # A streaming plan's cluster size follows the card's occupancy.
-        check((plans[0].variant, plans[0].cluster if expected[1] else None) == expected,
-              f"plan {plans[0]} is not {expected} [{label}]")
+        # A streaming plan's cluster size follows the card's occupancy; its
+        # weights other than W2 are resident unless the case says otherwise.
+        variant, cluster, resident = expected + (True,) * (3 - len(expected))
+        check((plans[0].variant, plans[0].cluster if cluster else None, plans[0].resident)
+              == (variant, cluster, resident), f"plan {plans[0]} is not {expected} [{label}]")
         if label.startswith(("serving", "chairs", "ragged slice")):
             plans.append(card_plan(batch, code, hidden, n_blocks, variant="stream"))
         ref = mlp_resnet_rollout_reference(t0, params, n)
@@ -2681,9 +2689,10 @@ def check_kernel_cases(cases: dict) -> dict:
                     batch, code, hidden, n_blocks, plan.cluster, plan.rows)
             else:
                 k_smem = stream_lib.mlp_resnet_rollout_smem_bytes(
-                    code, hidden, n_blocks, plan.cluster, plan.rows, plan.stages)
+                    code, hidden, n_blocks, plan.cluster, plan.rows, int(plan.resident))
                 active = stream_lib.mlp_resnet_rollout_max_active(
-                    batch, code, hidden, n_blocks, plan.cluster, plan.rows, plan.stages)
+                    batch, code, hidden, n_blocks, plan.cluster, plan.rows,
+                    int(plan.resident))
             print(f"plan [{label}]: {plan_text(plan)}, grid {plan.grid}; the kernel's own "
                   f"layout {k_smem} bytes; at most {active} such clusters at once")
             check(k_smem == plan.smem_bytes, "plan and kernel disagree on shared memory")
@@ -2754,7 +2763,8 @@ def main() -> None:
     params_main = model.t_resnet.flat_params()
     gen = torch.Generator().manual_seed(1)
     ragged = MLPResnet(20, 2, 512, generator=gen).to(dev)
-    cases = {  # label: (t0, params, n_steps, the plan's (variant, cluster or None))
+    # label: (t0, params, n_steps, the plan's (variant, cluster or None[, resident]))
+    cases = {
         "serving B64 code20 H512 1 block 100 steps": (
             t0_main, params_main, N_FORECAST, ("cluster", 8)),
         "ragged B13 code20 H512 2 blocks 100 steps": (
@@ -2784,6 +2794,16 @@ def main() -> None:
             torch.randn(B, 20, generator=gen).to(dev),
             MLPResnet(20, 16, 256, generator=gen).to(dev).flat_params(), 30,
             ("stream", None)),
+        # No cluster holds these blocks' W1 and W3 slices beside the ring: the
+        # streaming kernel reads them from L2.
+        "8 blocks B64 code64 H512 30 steps": (
+            torch.randn(B, 64, generator=gen).to(dev),
+            MLPResnet(64, 8, 512, generator=gen).to(dev).flat_params(), 30,
+            ("stream", None, False)),
+        "8 blocks B50 code20 H2048 20 steps": (
+            torch.randn(50, 20, generator=gen).to(dev),
+            MLPResnet(20, 8, 2048, generator=gen).to(dev).flat_params(), 20,
+            ("stream", None, False)),
     })
     cases.update(chairs_kernel_cases(dev))
     errors = check_kernel_cases(cases)
@@ -2899,6 +2919,9 @@ def main() -> None:
         t0_4 = model4.encode_t(cond_dev).contiguous()
     serving4 = stream_turns(t0_4, model4.t_resnet.flat_params(), N_FORECAST, flops_peak,
                             bw_peak, reps=3, inner=2)
+    # W1, the biases and W3 from L2: phase 3's 8-block case.
+    t0_l2, params_l2, n_l2, _ = cases["8 blocks B64 code64 H512 30 steps"]
+    from_l2 = stream_turns(t0_l2, params_l2, n_l2, flops_peak, bw_peak, reps=3, inner=2)
     phase_done(5)
 
     # -- 6. the train step, card against CPU -------------------------------
@@ -2997,7 +3020,11 @@ def main() -> None:
         **({"serving4_shapes": serving4["shapes"], "serving4_plan": serving4["plan"]._asdict(),
             "serving4_ms": serving4["ms"]["stream"], "serving4_plain_ms": serving4["ms"]["plain"],
             "serving4_addmm_loop_ms": serving4["ms"]["addmm"],
-            "serving4_bound_ms": serving4["bound_ms"], "serving4_bound_by": serving4["bound_by"]}
+            "serving4_bound_ms": serving4["bound_ms"], "serving4_bound_by": serving4["bound_by"],
+            "from_l2_shapes": from_l2["shapes"], "from_l2_plan": from_l2["plan"]._asdict(),
+            "from_l2_ms": from_l2["ms"]["stream"], "from_l2_plain_ms": from_l2["ms"]["plain"],
+            "from_l2_addmm_loop_ms": from_l2["ms"]["addmm"],
+            "from_l2_bound_ms": from_l2["bound_ms"], "from_l2_bound_by": from_l2["bound_by"]}
            if v == "stream" else {}),
         **chairs_keys(v),
         "launches_taxibj": {

@@ -27,7 +27,7 @@
 //     b3 of every block resident, loaded once at kernel start;
 //   * W2[:, cols] of every block is packed once per call by the wrapper
 //     (ops/rollout.py:pack_w2) into [n_blocks][C][hidden_pad][S_pad] f32, zero-padded,
-//     and streams in chunks of kc rows x S_pad columns through a ring of `stages`
+//     and streams in chunks of kc rows x S_pad columns through a ring of kStages
 //     slots in shared memory.  The W2 product's threads form k_groups row groups; group
 //     g reads rows [g*16, g*16 + 16) of every chunk, one contiguous, 16-byte-aligned
 //     run of the packed W2, so each group streams its own rows: the group's first
@@ -36,9 +36,17 @@
 //     once it has read them.  No group waits for another.  The stream wraps across
 //     blocks and steps (block n-1's last chunk is followed by block 0's first chunk of
 //     the next step): before it consumes chunk q, a group refills the slot of chunk
-//     q-1 with chunk q + stages - 1, so the first chunk of each product is in flight
+//     q-1 with chunk q + kStages - 1, so the first chunk of each product is in flight
 //     during the W1 product and the barriers before it.  A refill waits for the last
 //     readers of its slot, whichever block or step they were in.
+// Where even these slices of every block do not fit beside the ring and the
+// activations at any cluster size and row tile (many blocks, wide hidden or code:
+// 8 blocks at code 64, hidden 512), the kernel is launched with kResident false: W1,
+// b1, b2, W3 and b3 are then read from global memory (L2) every block-step, a 1/C
+// slice a CTA, and only W2 goes through the ring.  rollout_plan takes that mode only
+// when no resident one fits.  There the W1 product, one global load a weight and 4
+// rows, is the largest phase: 6.7K of 23.5K SM clocks a block-step at that shape
+// (C 16, R 12; tools/torch_rollout_phases.py, H100 80GB HBM3 at 700 W).
 // The cluster serves a tile of R batch rows (4 to 32, a multiple of 4); every CTA keeps
 // its own copy of the tile's t.  One block-step:
 //   1. h1[:, cols] = relu(t W1[:, cols] + b1[cols]), one (column, 4 rows) item a
@@ -76,10 +84,10 @@
 // cluster barriers 2.6K.  Wider tiles (4 columns measured slower here: their sums
 // need twice the scratch), 3xTF32 mma for W2, and fewer phases are the next steps.
 //
-// ops/rollout.py:rollout_plan chooses C and R for the fewest waves of clusters (from
-// cudaOccupancyMaxActiveClusters of the same launch, mlp_resnet_rollout_max_active),
-// then the least work a CTA; stream_smem_bytes there and make_layout below compute
-// the same shared-memory size.
+// ops/rollout.py:rollout_plan chooses the mode (resident if any C and R fit), then C
+// and R for the fewest waves of clusters (from cudaOccupancyMaxActiveClusters of the
+// same launch, mlp_resnet_rollout_max_active), then the least work a CTA;
+// stream_smem_bytes there and make_layout below compute the same shared-memory size.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,8 +100,7 @@ namespace {
 
 constexpr int kThreads = 256;          // threads per CTA
 constexpr int kMaxBlocks = 16;         // MLP-ResNet blocks whose pointers fit the argument
-constexpr int kMinStages = 2;
-constexpr int kMaxStages = 8;
+constexpr int kStages = 2;             // slots of the W2 ring (ops/rollout.py:STREAM_STAGES)
 constexpr int kGroupRows = 16;         // W2 rows a thread group takes from one chunk
 constexpr int kGroupCols = 2;          // W2 columns a thread of the W2 product takes
 constexpr int kSmemLimit = 232448;     // dynamic shared memory one CTA may use on sm_90
@@ -148,8 +155,10 @@ struct Layout {
   int ring, chunk, t, h1, h2, red, part, bars, total;
 };
 
+// `resident`: every block's W1, b1, b2, W3 and b3 slices are held in shared memory;
+// otherwise the kernel reads them from global memory and the region is empty.
 __host__ __device__ inline Layout make_layout(int code, int hidden, int n_blocks,
-                                              int cluster, int rows, int stages) {
+                                              int cluster, int rows, bool resident) {
   Layout L;
   L.slice = (hidden + cluster - 1) / cluster;
   L.slice_pad = round_up4(L.slice);
@@ -166,18 +175,18 @@ __host__ __device__ inline Layout make_layout(int code, int hidden, int n_blocks
   L.w3 = L.b2 + sp;                // [sp][code]   W3[lo + s, c]
   L.b3 = L.w3 + sp * code;         // [code]
   L.per_block = L.b3 + round_up4(code);
-  L.ring = n_blocks * L.per_block;          // [stages][k_groups][kGroupRows][sp]
+  L.ring = resident ? n_blocks * L.per_block : 0;  // [kStages][k_groups][kGroupRows][sp]
   L.chunk = L.chunk_rows * sp;
-  L.t = L.ring + stages * L.chunk;          // [code][rows]
+  L.t = L.ring + kStages * L.chunk;         // [code][rows]
   L.h1 = L.t + code * rows;                 // [hidden_pad][rows], every rank's columns
   L.h2 = L.h1 + L.hidden_pad * rows;        // [sp][rows]
   // Split-K sums of the W2 and W3 products, in turn: [k_groups][sp][rows] and
   // [k3_groups][code][rows].
   L.red = L.h2 + sp * rows;
   L.part = L.red + imax(L.k_groups * sp, L.k3_groups * code) * rows;  // [cluster][code][rows]
-  // full[stages][k_groups], empty[stages][k_groups]: 8 bytes each.
+  // full[kStages][k_groups], empty[kStages][k_groups]: 8 bytes each.
   L.bars = L.part + cluster * code * rows;
-  L.total = L.bars + 4 * stages * L.k_groups;
+  L.total = L.bars + 4 * kStages * L.k_groups;
   return L;
 }
 
@@ -271,9 +280,10 @@ __device__ __forceinline__ void mbarrier_wait(unsigned bar, unsigned parity) {
   } while (!done);
 }
 
-// The W2 stream of one row group g of a CTA: rows [g*8, g*8 + 8) of every chunk, a
-// contiguous run of the packed W2.  Chunk p is chunk p % n_chunks of block
-// (p / n_chunks) % n_blocks, in ring slot p % stages, the slot's use p / stages.
+// The W2 stream of one row group g of a CTA: rows [g*kGroupRows, (g+1)*kGroupRows)
+// of every chunk, a contiguous run of the packed W2.  Chunk p is chunk p % n_chunks of
+// block (p / n_chunks) % n_blocks, in ring slot p % kStages, the slot's use
+// p / kStages.
 // Each group has its own slots and mbarriers, so no group waits for another.
 struct Ring {
   const float* w2;     // this rank's slice of block 0 in the packed W2
@@ -281,7 +291,7 @@ struct Ring {
   unsigned slots;      // shared address of slot 0
   unsigned full;       // shared address of full[0][0]
   unsigned empty;      // shared address of empty[0][0]
-  int stages, n_chunks, n_blocks, k_groups, chunk, part, total;  // part: a group's floats
+  int n_chunks, n_blocks, k_groups, chunk, part, total;  // part: a group's floats
 
   __device__ __forceinline__ unsigned full_bar(int s, int g) const {
     return full + 8 * (s * k_groups + g);
@@ -291,11 +301,11 @@ struct Ring {
   }
 
   // The group's first thread only: copy group g's rows of chunk p into its slot
-  // once the group's warps have released the slot's previous chunk (p - stages).
+  // once the group's warps have released the slot's previous chunk (p - kStages).
   __device__ __forceinline__ void issue(int g, int p) const {
     if (p >= total) return;
-    const int s = p % stages;
-    if (p >= stages) mbarrier_wait(empty_bar(s, g), ((p / stages) - 1) & 1);
+    const int s = p % kStages;
+    if (p >= kStages) mbarrier_wait(empty_bar(s, g), ((p / kStages) - 1) & 1);
     const int c = p % n_chunks;
     const int b = (p / n_chunks) % n_blocks;
     const unsigned bytes = static_cast<unsigned>(sizeof(float)) * part;
@@ -310,19 +320,36 @@ struct Ring {
   }
 };
 
-template <int R>
+// One block's W1, b1, b2, W3 and b3 for this rank: its slices in shared memory
+// (kResident) or the weights themselves in global memory, read through the read-only
+// cache.  w1 is indexed [c * w1_stride + s], w3 [s * code + c], b1 and b2 [s], b3 [c],
+// s < the rank's width.
+struct BlockWeights {
+  const float *w1, *b1, *b2, *w3, *b3;
+  int w1_stride;
+};
+
+template <bool kResident>
+__device__ __forceinline__ float weight(const float* p, int i) {
+  if constexpr (kResident)
+    return p[i];
+  else
+    return __ldg(p + i);
+}
+
+template <int R, bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_rollout_kernel(const float* __restrict__ t0,
                       const __grid_constant__ BlockParams params,  // indexed in place
                       const float* __restrict__ w2_packed, int n_blocks,
                       float* __restrict__ out, int batch, int code, int hidden,
-                      int n_steps, int stages) {
+                      int n_steps) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const Layout L = make_layout(code, hidden, n_blocks, n_ranks, R, stages);
+  const Layout L = make_layout(code, hidden, n_blocks, n_ranks, R, kResident);
   const int sp = L.slice_pad;
   const int tid = threadIdx.x;
   const int row0 = static_cast<int>(blockIdx.x) / n_ranks * R;
@@ -348,8 +375,7 @@ stream_rollout_kernel(const float* __restrict__ t0,
   ring.block_step = static_cast<size_t>(n_ranks) * L.hidden_pad * sp;
   ring.slots = shared_address(ring_s);
   ring.full = shared_address(smem + L.bars);
-  ring.empty = ring.full + 8 * stages * L.k_groups;
-  ring.stages = stages;
+  ring.empty = ring.full + 8 * kStages * L.k_groups;
   ring.n_chunks = L.n_chunks;
   ring.n_blocks = n_blocks;
   ring.k_groups = L.k_groups;
@@ -361,7 +387,7 @@ stream_rollout_kernel(const float* __restrict__ t0,
     for (int gg = 0; gg < L.k_groups; ++gg) {
       // The warps that hold threads of group gg.
       const int warps = ((gg + 1) * col_groups - 1) / 32 - gg * col_groups / 32 + 1;
-      for (int s = 0; s < stages; ++s) {
+      for (int s = 0; s < kStages; ++s) {
         mbarrier_init(ring.full_bar(s, gg), 1);
         mbarrier_init(ring.empty_bar(s, gg), warps);
       }
@@ -369,14 +395,17 @@ stream_rollout_kernel(const float* __restrict__ t0,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // Resident weights, once for the whole rollout.
-  for (int b = 0; b < n_blocks; ++b) {
-    const float* const* p = params.p + 6 * b;
-    float* wb = smem + b * L.per_block;
-    load_window(wb + L.w1, code, sp, code, width, p[0] + lo, hidden);
-    load_window(wb + L.b1, 1, sp, 1, width, p[1] + lo, 0);
-    load_window(wb + L.b2, 1, sp, 1, width, p[3] + lo, 0);
-    load_window(wb + L.w3, sp, code, width, code, p[4] + static_cast<size_t>(lo) * code, code);
-    load_window(wb + L.b3, 1, code, 1, code, p[5], 0);
+  if constexpr (kResident) {
+    for (int b = 0; b < n_blocks; ++b) {
+      const float* const* p = params.p + 6 * b;
+      float* wb = smem + b * L.per_block;
+      load_window(wb + L.w1, code, sp, code, width, p[0] + lo, hidden);
+      load_window(wb + L.b1, 1, sp, 1, width, p[1] + lo, 0);
+      load_window(wb + L.b2, 1, sp, 1, width, p[3] + lo, 0);
+      load_window(wb + L.w3, sp, code, width, code, p[4] + static_cast<size_t>(lo) * code,
+                  code);
+      load_window(wb + L.b3, 1, code, 1, code, p[5], 0);
+    }
   }
   for (int i = tid; i < code * R; i += kThreads) {
     const int c = i / R;
@@ -388,17 +417,28 @@ stream_rollout_kernel(const float* __restrict__ t0,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   if (w2_thread && cgi == 0)
-    for (int p = 0; p < stages - 1; ++p) ring.issue(g, p);
+    for (int p = 0; p < kStages - 1; ++p) ring.issue(g, p);
   write_tile<R>(out, t_s, row0, rows, code, n_ranks, rank);
   // Every CTA of the cluster runs before any writes into a peer's shared memory.
   cluster.sync();
 
+  // The W3 product sums the rank's real columns: padded ones hold zero weights when
+  // resident and lie past the slice (or the matrix) in global memory.
+  const int w3_rows = kResident ? sp : width;
   const int k3_chunk = (sp + L.k3_groups - 1) / L.k3_groups;
   int q = 0;  // the next chunk of the stream to consume
   PHASE_START()
   for (int k = 1; k < n_steps; ++k) {
     for (int b = 0; b < n_blocks; ++b) {
-      const float* wb = smem + b * L.per_block;
+      BlockWeights wb;
+      if constexpr (kResident) {
+        const float* base = smem + b * L.per_block;
+        wb = {base + L.w1, base + L.b1, base + L.b2, base + L.w3, base + L.b3, sp};
+      } else {
+        const float* const* p = params.p + 6 * b;
+        wb = {p[0] + lo, p[1] + lo, p[3] + lo, p[4] + static_cast<size_t>(lo) * code, p[5],
+              hidden};
+      }
 
       // 1. h1[:, lo + s] = relu(t W1 + b1), into the full h1 of every rank: item
       //    (s, i) is column s for rows [4i, 4i + 4).
@@ -408,14 +448,14 @@ stream_rollout_kernel(const float* __restrict__ t0,
         float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
         for (int c = 0; c < code; ++c) {
-          const float w = wb[L.w1 + c * sp + s];
+          const float w = weight<kResident>(wb.w1, c * wb.w1_stride + s);
           const float4 x = reinterpret_cast<const float4*>(t_s + c * R)[i];
           acc.x = fmaf(x.x, w, acc.x);
           acc.y = fmaf(x.y, w, acc.y);
           acc.z = fmaf(x.z, w, acc.z);
           acc.w = fmaf(x.w, w, acc.w);
         }
-        const float bias = wb[L.b1 + s];
+        const float bias = weight<kResident>(wb.b1, s);
         acc = make_float4(fmaxf(acc.x + bias, 0.f), fmaxf(acc.y + bias, 0.f),
                           fmaxf(acc.z + bias, 0.f), fmaxf(acc.w + bias, 0.f));
         PHASE_MARK(0)
@@ -433,12 +473,12 @@ stream_rollout_kernel(const float* __restrict__ t0,
 #pragma unroll
         for (int i = 0; i < kGroupCols; ++i) acc[r][i] = 0.f;
       for (int c = 0; c < L.n_chunks; ++c, ++q) {
-        const int slot = q % stages;
-        if (w2_thread && cgi == 0) ring.issue(g, q + stages - 1);
+        const int slot = q % kStages;
+        if (w2_thread && cgi == 0) ring.issue(g, q + kStages - 1);
         __syncwarp();  // the warp enters the product together, its issuing lane too
         PHASE_MARK(3)
         if (w2_thread) {
-          mbarrier_wait(ring.full_bar(slot, g), (q / stages) & 1);
+          mbarrier_wait(ring.full_bar(slot, g), (q / kStages) & 1);
           PHASE_MARK(4)
           const float* w2 = ring_s + slot * L.chunk + g * ring.part + cgi * kGroupCols;
           const float* x1 = h1_s + (c * L.chunk_rows + g * kGroupRows) * R;
@@ -470,10 +510,13 @@ stream_rollout_kernel(const float* __restrict__ t0,
       }
       __syncthreads();
       for (int o = tid; o < sp * R; o += kThreads) {
+        const int s = o / R;
         float sum = red_s[o];
 #pragma unroll 4
         for (int gg = 1; gg < L.k_groups; ++gg) sum += red_s[gg * sp * R + o];
-        h2_s[o] = fmaxf(sum + wb[L.b2 + o / R], 0.f);
+        // Padded columns: zero in shared memory, past the slice in global memory.
+        const float bias = (kResident || s < width) ? weight<kResident>(wb.b2, s) : 0.f;
+        h2_s[o] = fmaxf(sum + bias, 0.f);
       }
       __syncthreads();
       PHASE_MARK(6)
@@ -484,13 +527,13 @@ stream_rollout_kernel(const float* __restrict__ t0,
       for (int idx = tid; idx < code * L.k3_groups; idx += kThreads) {
         const int g3 = idx / code;
         const int c = idx - g3 * code;
-        const int s1 = imin(sp, (g3 + 1) * k3_chunk);
+        const int s1 = imin(w3_rows, (g3 + 1) * k3_chunk);
         float a3[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) a3[r] = 0.f;
 #pragma unroll 4
         for (int s = g3 * k3_chunk; s < s1; ++s) {
-          const float w = wb[L.w3 + s * code + c];
+          const float w = weight<kResident>(wb.w3, s * code + c);
           float x[R];
           load_rows<R>(h2_s + s * R, x);
 #pragma unroll
@@ -516,7 +559,7 @@ stream_rollout_kernel(const float* __restrict__ t0,
         float sum = part_s[i];
 #pragma unroll 4
         for (int q2 = 1; q2 < n_ranks; ++q2) sum += part_s[q2 * code * R + i];
-        t_s[i] += sum + wb[L.b3 + i / R];
+        t_s[i] += sum + weight<kResident>(wb.b3, i / R);
       }
       __syncthreads();
       PHASE_MARK(10)
@@ -532,19 +575,18 @@ stream_rollout_kernel(const float* __restrict__ t0,
   cluster.sync();
 }
 
-template <int R>
+template <int R, bool kResident>
 cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int batch,
-                      int code, int hidden, int n_blocks, int cluster, int stages,
-                      cudaStream_t stream) {
+                      int code, int hidden, int n_blocks, int cluster, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * make_layout(code, hidden, n_blocks, cluster, R, stages).total;
+      sizeof(float) * make_layout(code, hidden, n_blocks, cluster, R, kResident).total;
   if (smem > static_cast<size_t>(kSmemLimit)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(stream_rollout_kernel<R>,
+  cudaError_t err = cudaFuncSetAttribute(stream_rollout_kernel<R, kResident>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   if (cluster > 8) {
-    err = cudaFuncSetAttribute(stream_rollout_kernel<R>,
+    err = cudaFuncSetAttribute(stream_rollout_kernel<R, kResident>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
@@ -562,104 +604,110 @@ cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int ba
   return cudaSuccess;
 }
 
-template <int R>
-int max_active_clusters(int batch, int code, int hidden, int n_blocks, int cluster,
-                        int stages) {
+template <int R, bool kResident>
+int max_active_clusters(int batch, int code, int hidden, int n_blocks, int cluster) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err =
-      configure<R>(&cfg, &attr, batch, code, hidden, n_blocks, cluster, stages, nullptr);
+      configure<R, kResident>(&cfg, &attr, batch, code, hidden, n_blocks, cluster, nullptr);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, stream_rollout_kernel<R>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&active, stream_rollout_kernel<R, kResident>, &cfg);
   return err == cudaSuccess ? active : -static_cast<int>(err);
 }
 
-template <int R>
+template <int R, bool kResident>
 int launch(const float* t0, const BlockParams& bp, const float* w2_packed, int n_blocks,
            float* out, int batch, int code, int hidden, int n_steps, int cluster,
-           int stages, cudaStream_t stream) {
+           cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err =
-      configure<R>(&cfg, &attr, batch, code, hidden, n_blocks, cluster, stages, stream);
+      configure<R, kResident>(&cfg, &attr, batch, code, hidden, n_blocks, cluster, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, stream_rollout_kernel<R>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&active, stream_rollout_kernel<R, kResident>, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return kNoClusterFits;
-  err = cudaLaunchKernelEx(&cfg, stream_rollout_kernel<R>, t0, bp, w2_packed, n_blocks, out,
-                           batch, code, hidden, n_steps, stages);
+  err = cudaLaunchKernelEx(&cfg, stream_rollout_kernel<R, kResident>, t0, bp, w2_packed,
+                           n_blocks, out, batch, code, hidden, n_steps);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid_shape(int code, int hidden, int n_blocks, int cluster, int stages) {
-  if (n_blocks < 1 || n_blocks > kMaxBlocks || code < 1 || hidden < 1 ||
-      stages < kMinStages || stages > kMaxStages)
-    return false;
+bool valid_shape(int code, int hidden, int n_blocks, int cluster) {
+  if (n_blocks < 1 || n_blocks > kMaxBlocks || code < 1 || hidden < 1) return false;
   if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16)
     return false;
   // Every column pair of a slice needs a thread of the W2 product.
   return round_up4((hidden + cluster - 1) / cluster) <= kGroupCols * kThreads;
 }
 
-// Calls f.template operator()<R>() for the row tile R, or returns `bad` when the
-// kernel is not built for it.
-#define ROLLOUT_DISPATCH_ROWS(rows, bad, CALL) \
-  switch (rows) {                              \
-    case 4: { constexpr int R = 4; return CALL; }   \
-    case 8: { constexpr int R = 8; return CALL; }   \
-    case 12: { constexpr int R = 12; return CALL; } \
-    case 16: { constexpr int R = 16; return CALL; } \
-    case 20: { constexpr int R = 20; return CALL; } \
-    case 24: { constexpr int R = 24; return CALL; } \
-    case 28: { constexpr int R = 28; return CALL; } \
-    case 32: { constexpr int R = 32; return CALL; } \
-    default: return bad;                       \
+// Returns CALL with the row tile R and the mode kResident as constants, or `bad`
+// when the kernel is not built for that row tile.
+#define ROLLOUT_DISPATCH_ROWS(rows, resident, bad, CALL)               \
+  switch ((rows) * 2 + ((resident) ? 1 : 0)) {                         \
+    case 9: { constexpr int R = 4; constexpr bool kResident = true; return CALL; }    \
+    case 8: { constexpr int R = 4; constexpr bool kResident = false; return CALL; }   \
+    case 17: { constexpr int R = 8; constexpr bool kResident = true; return CALL; }   \
+    case 16: { constexpr int R = 8; constexpr bool kResident = false; return CALL; }  \
+    case 25: { constexpr int R = 12; constexpr bool kResident = true; return CALL; }  \
+    case 24: { constexpr int R = 12; constexpr bool kResident = false; return CALL; } \
+    case 33: { constexpr int R = 16; constexpr bool kResident = true; return CALL; }  \
+    case 32: { constexpr int R = 16; constexpr bool kResident = false; return CALL; } \
+    case 41: { constexpr int R = 20; constexpr bool kResident = true; return CALL; }  \
+    case 40: { constexpr int R = 20; constexpr bool kResident = false; return CALL; } \
+    case 49: { constexpr int R = 24; constexpr bool kResident = true; return CALL; }  \
+    case 48: { constexpr int R = 24; constexpr bool kResident = false; return CALL; } \
+    case 57: { constexpr int R = 28; constexpr bool kResident = true; return CALL; }  \
+    case 56: { constexpr int R = 28; constexpr bool kResident = false; return CALL; } \
+    case 65: { constexpr int R = 32; constexpr bool kResident = true; return CALL; }  \
+    case 64: { constexpr int R = 32; constexpr bool kResident = false; return CALL; } \
+    default: return bad;                                               \
   }
 
 }  // namespace
 
 // Launches the rollout on `stream` in clusters of `cluster` CTAs over tiles of
-// `rows` (4 to 32, a multiple of 4) batch rows, with a ring of `stages` W2 chunks.
-// `params` is a host array of 6 * n_blocks device pointers (w1 b1 w2 b2 w3 b3 per
-// block; w2 is read from `w2_packed` instead, [n_blocks][cluster][hidden_pad][S_pad]
-// as ops/rollout.py:pack_w2 lays it out).  Returns a cudaError_t (0 when the launch
-// was accepted), or -1 when no such cluster fits on the device.  Faults during the
-// run surface at the caller's next synchronisation.
+// `rows` (4 to 32, a multiple of 4) batch rows; `resident` (0 or 1) holds every
+// block's W1, b1, b2, W3 and b3 slices in shared memory, else they are read from
+// global memory.  `params` is a host array of 6 * n_blocks device pointers (w1 b1 w2
+// b2 w3 b3 per block; w2 is read from `w2_packed` instead,
+// [n_blocks][cluster][hidden_pad][S_pad] as ops/rollout.py:pack_w2 lays it out).
+// Returns a cudaError_t (0 when the launch was accepted), or -1 when no such cluster
+// fits on the device.  Faults during the run surface at the caller's next
+// synchronisation.
 extern "C" int mlp_resnet_rollout_f32(const float* t0, const void* const* params,
                                       const float* w2_packed, int n_blocks, float* out,
                                       int batch, int code, int hidden, int n_steps,
-                                      int cluster, int rows, int stages, void* stream) {
-  if (!valid_shape(code, hidden, n_blocks, cluster, stages) || batch < 1 || n_steps < 1)
+                                      int cluster, int rows, int resident, void* stream) {
+  if (!valid_shape(code, hidden, n_blocks, cluster) || batch < 1 || n_steps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   BlockParams bp{};
   for (int i = 0; i < 6 * n_blocks; ++i) bp.p[i] = static_cast<const float*>(params[i]);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ROLLOUT_DISPATCH_ROWS(rows, static_cast<int>(cudaErrorInvalidValue),
-                        (launch<R>(t0, bp, w2_packed, n_blocks, out, batch, code, hidden,
-                                   n_steps, cluster, stages, s)))
+  ROLLOUT_DISPATCH_ROWS(rows, resident, static_cast<int>(cudaErrorInvalidValue),
+                        (launch<R, kResident>(t0, bp, w2_packed, n_blocks, out, batch, code,
+                                              hidden, n_steps, cluster, s)))
 }
 
 // Dynamic shared memory of one CTA in bytes (what rollout_plan computes), or -1.
 extern "C" int mlp_resnet_rollout_smem_bytes(int code, int hidden, int n_blocks, int cluster,
-                                             int rows, int stages) {
-  if (!valid_shape(code, hidden, n_blocks, cluster, stages) || rows < 4 || rows > 32 ||
-      rows % 4)
+                                             int rows, int resident) {
+  if (!valid_shape(code, hidden, n_blocks, cluster) || rows < 4 || rows > 32 || rows % 4)
     return -1;
   return static_cast<int>(sizeof(float)) *
-         make_layout(code, hidden, n_blocks, cluster, rows, stages).total;
+         make_layout(code, hidden, n_blocks, cluster, rows, resident != 0).total;
 }
 
 // cudaOccupancyMaxActiveClusters for this launch, or minus a cudaError_t.
 extern "C" int mlp_resnet_rollout_max_active(int batch, int code, int hidden, int n_blocks,
-                                             int cluster, int rows, int stages) {
-  if (!valid_shape(code, hidden, n_blocks, cluster, stages) || batch < 1)
+                                             int cluster, int rows, int resident) {
+  if (!valid_shape(code, hidden, n_blocks, cluster) || batch < 1)
     return -static_cast<int>(cudaErrorInvalidValue);
-  ROLLOUT_DISPATCH_ROWS(rows, -static_cast<int>(cudaErrorInvalidValue),
-                        (max_active_clusters<R>(batch, code, hidden, n_blocks, cluster,
-                                                stages)))
+  ROLLOUT_DISPATCH_ROWS(rows, resident, -static_cast<int>(cudaErrorInvalidValue),
+                        (max_active_clusters<R, kResident>(batch, code, hidden, n_blocks,
+                                                           cluster)))
 }
 
 #ifdef ROLLOUT_PHASE_CLOCKS

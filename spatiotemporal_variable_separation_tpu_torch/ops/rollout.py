@@ -18,10 +18,13 @@ small residual MLP (reference ``var_sep/networks/model.py:78-83``).
     over a cluster of C CTAs, with W1, the biases and W3 resident and every
     block's W2 slice streamed from L2 through a ring of ``STREAM_STAGES``
     chunks fed by TMA bulk copies; it takes every shape no resident cluster
-    holds (e.g. WaveEq's 3 blocks at hidden 512).  C and the row tile R
-    (4 to 32, a multiple of 4) give the fewest waves of clusters the card
-    runs at once, then the least work a CTA.  ``pack_w2`` lays W2 out for
-    it, once per call.
+    holds (e.g. WaveEq's 3 blocks at hidden 512).  Where even the W1, bias
+    and W3 slices of every block do not fit (``resident=False``: e.g. 8
+    blocks at code 64, hidden 512), the kernel reads them from L2 every
+    block-step and streams W2 as before.  C and the row tile R (4 to 32, a
+    multiple of 4) give the fewest waves of clusters the card runs at once,
+    then the least work a CTA.  ``pack_w2`` lays W2 out for it, once per
+    call.
 
 * ``mlp_resnet_rollout`` runs the plain version for a tensor on the CPU and
   launches the planned kernel for a tensor on the card; a failed launch
@@ -49,7 +52,7 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 CLUSTER_THREADS = 256         # threads per CTA of either kernel
 MAX_BLOCKS = 16               # MLP-ResNet blocks either kernel takes
 STREAM_ROWS = tuple(range(4, 33, 4))  # row tiles the streaming kernel is built for
-STREAM_STAGES = 2             # W2 chunks in the streaming kernel's ring
+STREAM_STAGES = 2             # W2 chunks in the streaming kernel's ring (its kStages)
 STREAM_GROUP_ROWS = 16        # W2 rows one thread group takes from a chunk
 STREAM_GROUP_COLS = 2         # W2 columns a thread of the W2 product takes
 # Clusters of C CTAs that an H100 SXM runs at once at one CTA an SM, for a
@@ -65,8 +68,8 @@ class RolloutPlan(NamedTuple):
     rows: int        # batch rows per cluster
     smem_bytes: int  # dynamic shared memory of one CTA
     grid: int        # CTAs launched: a whole number of clusters
-    stages: int = 0  # W2 chunks in the ring ("stream"); 0 for "cluster"
     waves: int = 0   # rounds of clusters the card runs ("stream"); 0 for "cluster"
+    resident: bool = True  # W1, biases and W3 held in shared memory (always for "cluster")
 
 
 class StreamLayout(NamedTuple):
@@ -110,25 +113,26 @@ def stream_layout(hidden: int, cluster: int) -> StreamLayout:
 
 
 def stream_smem_bytes(code: int, hidden: int, n_blocks: int, cluster: int, rows: int,
-                      stages: int = STREAM_STAGES) -> int:
+                      resident: bool = True) -> int:
     """Dynamic shared memory of one CTA of the streaming kernel, in bytes:
-    every block's resident W1, b1, b2, W3, b3 slices, the ring of W2 chunks,
-    the activations and the ring's mbarriers.  The kernel's ``make_layout``
-    computes the same."""
+    every block's W1, b1, b2, W3, b3 slices (``resident``), the ring of W2
+    chunks, the activations and the ring's mbarriers.  The kernel's
+    ``make_layout`` computes the same."""
     lay = stream_layout(hidden, cluster)
     sp = lay.slice_pad
     k3_groups = min(max(1, CLUSTER_THREADS // code), sp)
-    per_block = 2 * code * sp + 2 * sp + _round_up4(code)
-    ring = stages * lay.chunk_rows * sp
+    per_block = 2 * code * sp + 2 * sp + _round_up4(code) if resident else 0
+    ring = STREAM_STAGES * lay.chunk_rows * sp
     scratch = max(lay.k_groups * sp, k3_groups * code)
     activations = rows * (code + lay.hidden_pad + sp + scratch + cluster * code)
-    barriers = 4 * stages * lay.k_groups  # a full and an empty mbarrier a slot and group
+    barriers = 4 * STREAM_STAGES * lay.k_groups  # a full and an empty mbarrier a slot and group
     return 4 * (n_blocks * per_block + ring + activations + barriers)
 
 
 def rollout_plan(batch: int, code: int, hidden: int, n_blocks: int,
                  variant: Optional[str] = None, rows: Optional[int] = None,
-                 active_clusters: Optional[Callable[[int, int], int]] = None) -> RolloutPlan:
+                 active_clusters: Optional[Callable[[int, int, bool], int]] = None
+                 ) -> RolloutPlan:
     """The kernel, cluster size, row tile and shared memory of a rollout.
 
     By default the cluster kernel at the smallest cluster whose slices fit,
@@ -137,8 +141,10 @@ def rollout_plan(batch: int, code: int, hidden: int, n_blocks: int,
     H100 runs at most 15 such clusters at once, so the last runs in a second
     wave (``chip_smoke.py`` times both).
 
-    The streaming kernel takes the cluster size and row tile with the fewest
-    waves, ``active_clusters(cluster, rows)`` being the number of such
+    The streaming kernel holds W1, the biases and W3 resident whenever some
+    cluster size and row tile fit so, else reads them from L2.  Within that
+    mode it takes the cluster size and row tile with the fewest waves,
+    ``active_clusters(cluster, rows, resident)`` being the number of such
     clusters the card runs at once (default ``H100_ACTIVE_CLUSTERS``), then
     the least work a CTA (rows x slice), then the most rows.  ``variant``
     and ``rows`` force a choice, to measure one against the other; a forced
@@ -162,30 +168,31 @@ def rollout_plan(batch: int, code: int, hidden: int, n_blocks: int,
     if rows is not None and rows not in STREAM_ROWS:
         raise ValueError(f"the streaming kernel takes 4 to 32 rows, a multiple of 4, "
                          f"got {rows}")
-    active_clusters = active_clusters or (lambda c, r: H100_ACTIVE_CLUSTERS[c])
-    best = None
-    for c in CLUSTER_SIZES:
-        sp = stream_layout(hidden, c).slice_pad
-        if sp > STREAM_GROUP_COLS * CLUSTER_THREADS:  # a thread a column pair of W2
-            continue
-        for r in STREAM_ROWS if rows is None else (rows,):
-            smem = stream_smem_bytes(code, hidden, n_blocks, c, r)
-            if smem > SMEM_LIMIT:
-                break  # more rows need more
-            fit = active_clusters(c, r)
-            if fit < 1:
+    active_clusters = active_clusters or (lambda c, r, resident: H100_ACTIVE_CLUSTERS[c])
+    for resident in (True, False):
+        best = None
+        for c in CLUSTER_SIZES:
+            sp = stream_layout(hidden, c).slice_pad
+            if sp > STREAM_GROUP_COLS * CLUSTER_THREADS:  # a thread a column pair of W2
                 continue
-            n_clusters = -(-batch // r)
-            waves = -(-n_clusters // fit)
-            key = (waves, r * sp, -r)
-            if best is None or key < best[0]:
-                best = (key, RolloutPlan("stream", c, r, smem, n_clusters * c,
-                                         STREAM_STAGES, waves))
-    if best is None:
-        raise ValueError(f"no rollout kernel takes {n_blocks} block(s) at code {code}, "
-                         f"hidden {hidden}: the streaming kernel's slices and activations "
-                         f"exceed {SMEM_LIMIT} bytes a CTA at every cluster size")
-    return best[1]
+            for r in STREAM_ROWS if rows is None else (rows,):
+                smem = stream_smem_bytes(code, hidden, n_blocks, c, r, resident)
+                if smem > SMEM_LIMIT:
+                    break  # more rows need more
+                fit = active_clusters(c, r, resident)
+                if fit < 1:
+                    continue
+                n_clusters = -(-batch // r)
+                waves = -(-n_clusters // fit)
+                key = (waves, r * sp, -r)
+                if best is None or key < best[0]:
+                    best = (key, RolloutPlan("stream", c, r, smem, n_clusters * c, waves,
+                                             resident))
+        if best is not None:
+            return best[1]
+    raise ValueError(f"no rollout kernel takes {n_blocks} block(s) at code {code}, "
+                     f"hidden {hidden}: the streaming kernel's ring and activations "
+                     f"exceed {SMEM_LIMIT} bytes a CTA at every cluster size")
 
 
 def pack_w2(params: Sequence[torch.Tensor], cluster: int) -> torch.Tensor:
@@ -284,17 +291,18 @@ def stream_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _stream_active(batch: int, code: int, hidden: int, n_blocks: int, cluster: int,
-                   rows: int) -> int:
+                   rows: int, resident: bool) -> int:
     active = stream_library().mlp_resnet_rollout_max_active(
-        batch, code, hidden, n_blocks, cluster, rows, STREAM_STAGES)
+        batch, code, hidden, n_blocks, cluster, rows, int(resident))
     if active < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters of the streaming kernel failed "
-                           f"(code {-active}) at cluster {cluster}, {rows} rows")
+                           f"(code {-active}) at cluster {cluster}, {rows} rows, "
+                           f"resident={resident}")
     return active
 
 
 def stream_active_clusters(batch: int, code: int, hidden: int,
-                           n_blocks: int) -> Callable[[int, int], int]:
+                           n_blocks: int) -> Callable[[int, int, bool], int]:
     """``active_clusters`` for ``rollout_plan`` from the current card: the
     streaming clusters of this shape that fit at once, as
     cudaOccupancyMaxActiveClusters reports them for the launch itself.  Each
@@ -333,7 +341,8 @@ def mlp_resnet_rollout(t0: torch.Tensor, params: Sequence[torch.Tensor], n_steps
             # w2 is freed on return; the caching allocator reuses its memory only
             # for work queued on this stream after the kernel.
             w2 = pack_w2(params, plan.cluster)
-            err = lib.mlp_resnet_rollout_f32(*args, w2.data_ptr(), *shape, plan.stages, stream)
+            err = lib.mlp_resnet_rollout_f32(*args, w2.data_ptr(), *shape, int(plan.resident),
+                                             stream)
         else:
             err = lib.mlp_resnet_rollout_cluster_f32(*args, *shape, stream)
     if err != 0:

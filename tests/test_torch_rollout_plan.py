@@ -23,7 +23,6 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     cluster_smem_bytes,
     mlp_resnet_rollout,
     mlp_resnet_rollout_reference,
-    STREAM_STAGES,
     pack_w2,
     rollout_plan,
     stream_layout,
@@ -84,8 +83,7 @@ def test_forced_stream_plan():
     # 6 clusters of 16 CTAs at 12 rows: one wave where 7 fit at once, and the
     # least work a CTA of any one-wave plan (12 rows x 32 columns).
     plan = rollout_plan(64, 20, 512, 1, variant="stream")
-    assert plan == ("stream", 16, 12, stream_smem_bytes(20, 512, 1, 16, 12), 96,
-                    STREAM_STAGES, 1)
+    assert plan == ("stream", 16, 12, stream_smem_bytes(20, 512, 1, 16, 12), 96, 1, True)
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -95,7 +93,7 @@ def test_forced_stream_plan():
     (dict(variant="tensor"), "variant must be"),
     (dict(rows=5), "4 or 8 rows"),
     (dict(variant="stream", rows=6), "streaming kernel takes 4 to 32 rows"),
-    (dict(hidden=8192), r"no rollout kernel takes 1 block\(s\) at code 20, hidden 8192"),
+    (dict(hidden=8200), r"no rollout kernel takes 1 block\(s\) at code 20, hidden 8200"),
 ])
 def test_plan_rejects(kwargs, match):
     args = dict(batch=64, code=20, hidden=512, n_blocks=1)

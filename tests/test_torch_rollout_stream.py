@@ -2,8 +2,9 @@
 the CPU.
 
 ``csrc/mlp_resnet_rollout.cu`` splits the hidden columns over a cluster as
-the cluster kernel does, keeps W1, the biases and W3 resident, and streams
-each rank's W2 slice in chunks through a ring in shared memory.  What
+the cluster kernel does, keeps W1, the biases and W3 resident (or, where no
+cluster holds those slices, reads them from L2), and streams each rank's W2
+slice in chunks through a ring in shared memory.  What
 surrounds the kernel is Python that runs here: the plan (cluster size, row
 tile, waves, shared memory), ``stream_smem_bytes`` (the kernel's
 ``make_layout`` in Python; ``chip_smoke.py`` holds the two equal on the card)
@@ -25,7 +26,6 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     H100_ACTIVE_CLUSTERS,
     SMEM_LIMIT,
     STREAM_ROWS,
-    STREAM_STAGES,
     mlp_resnet_rollout_reference,
     pack_w2,
     rollout_plan,
@@ -39,7 +39,7 @@ WAVE = dict(batch=256, code=32, hidden=512, n_blocks=3)      # the f32 WaveEq ev
 SERVING4 = dict(batch=64, code=20, hidden=512, n_blocks=4)   # the 4-block serving model
 
 
-def fifteen_at_c8(cluster, rows):
+def fifteen_at_c8(cluster, rows, resident=True):
     """15 clusters of 8 fit at once (an H100 at one CTA an SM)."""
     return H100_ACTIVE_CLUSTERS[cluster]
 
@@ -51,7 +51,7 @@ def test_stream_plan_is_one_wave(shape):
     n_clusters = plan.grid // plan.cluster
     assert plan.waves == 1 and n_clusters <= fifteen_at_c8(plan.cluster, plan.rows)
     assert n_clusters * plan.rows >= shape["batch"] > (n_clusters - 1) * plan.rows
-    assert plan.stages == STREAM_STAGES and plan.rows in STREAM_ROWS
+    assert plan.resident and plan.rows in STREAM_ROWS
     assert plan.smem_bytes == stream_smem_bytes(shape["code"], shape["hidden"],
                                                 shape["n_blocks"], plan.cluster, plan.rows)
     assert plan.smem_bytes <= SMEM_LIMIT
@@ -84,11 +84,11 @@ def test_stream_grid_is_whole_clusters(batch, rows):
 def test_stream_plan_takes_fewest_waves_then_least_work():
     # Only clusters of 16 fit: the plan takes them whatever the work a CTA.
     only16 = rollout_plan(**WAVE, variant="stream",
-                          active_clusters=lambda c, r: 7 if c == 16 else 0)
+                          active_clusters=lambda c, r, resident: 7 if c == 16 else 0)
     assert only16.cluster == 16 and only16.waves == -(-(-(-256 // only16.rows)) // 7)
     # Every launch fits at once: one wave and the least work a CTA (rows x
     # slice).
-    plan = rollout_plan(**WAVE, variant="stream", active_clusters=lambda c, r: 1000)
+    plan = rollout_plan(**WAVE, variant="stream", active_clusters=lambda c, r, resident: 1000)
     assert plan.waves == 1
     work = plan.rows * stream_layout(512, plan.cluster).slice_pad
     for c in CLUSTER_SIZES:
@@ -100,8 +100,8 @@ def test_stream_plan_takes_fewest_waves_then_least_work():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(active_clusters=lambda c, r: 0), "no rollout kernel takes 3 block"),
-    (dict(hidden=8192), "no rollout kernel takes 3 block"),
+    (dict(active_clusters=lambda c, r, resident: 0), "no rollout kernel takes 3 block"),
+    (dict(hidden=8200), "no rollout kernel takes 3 block"),
     (dict(rows=36), "4 to 32 rows"),
     (dict(rows=6), "4 to 32 rows"),
 ])
@@ -110,6 +110,55 @@ def test_stream_plan_raises_when_nothing_fits(kwargs, match):
     args.update(kwargs)
     with pytest.raises(ValueError, match=match):
         rollout_plan(**args)
+
+
+L2_SHAPES = [dict(batch=64, code=64, hidden=512, n_blocks=8),
+             dict(batch=50, code=20, hidden=2048, n_blocks=8),
+             dict(batch=64, code=20, hidden=3600, n_blocks=16),
+             dict(batch=256, code=128, hidden=1024, n_blocks=4)]
+
+
+@pytest.mark.parametrize("shape", L2_SHAPES, ids=lambda s: "-".join(map(str, s.values())))
+def test_stream_plan_reads_slices_from_l2_when_none_fit(shape):
+    # No cluster size and row tile hold every block's W1, bias and W3 slices
+    # beside the ring and the activations: the kernel reads them from L2.
+    code, hidden, n_blocks = shape["code"], shape["hidden"], shape["n_blocks"]
+    for c in CLUSTER_SIZES:
+        if stream_layout(hidden, c).slice_pad <= 512:
+            assert stream_smem_bytes(code, hidden, n_blocks, c, STREAM_ROWS[0]) > SMEM_LIMIT
+    plan = rollout_plan(**shape)
+    assert plan.variant == "stream" and not plan.resident
+    assert plan.smem_bytes == stream_smem_bytes(code, hidden, n_blocks, plan.cluster, plan.rows,
+                                                resident=False) <= SMEM_LIMIT
+    assert plan.grid == -(-shape["batch"] // plan.rows) * plan.cluster
+    assert plan.waves == -(-(plan.grid // plan.cluster) // H100_ACTIVE_CLUSTERS[plan.cluster])
+
+
+def test_l2_plan_shared_memory_by_hand():
+    # Per CTA at C 16, R 12 (code 64, H 512, 8 blocks): no resident slices; 2
+    # chunks of 256 W2 rows x 32 columns; activations t 64*12, h1 512*12, h2
+    # 32*12, the split-K scratch (16 row groups of 32 columns) 16*32*12 and the
+    # partials 16*64*12 floats; 2 mbarriers of 8 bytes for each of 2 slots and
+    # 16 row groups.
+    floats = 2 * 256 * 32 + 12 * (64 + 512 + 32 + 16 * 32 + 16 * 64) + 2 * 2 * 16 * 2
+    assert stream_smem_bytes(64, 512, 8, 16, 12, resident=False) == 4 * floats == 168_960
+    assert rollout_plan(**L2_SHAPES[0])[1:4] == (16, 12, 168_960)
+
+
+@pytest.mark.parametrize("code", [1, 10, 20, 32, 64, 128, 256, 512])
+def test_stream_plan_takes_what_the_one_cta_kernel_took(code):
+    # The earlier streaming kernel (one CTA per 8 rows, every weight read from
+    # L2) took any block count at 8 * (code + 2 * hidden) floats of shared
+    # memory; the cluster redesign takes every such shape up to code 512.
+    top = (SMEM_LIMIT // 32 - code) // 2
+    for hidden in sorted(set(range(1, top + 1, 29)) | set(range(top - 40, top + 1))):
+        for n_blocks in (1, 16):
+            plan = rollout_plan(64, code, hidden, n_blocks, variant="stream")
+            assert plan.smem_bytes <= SMEM_LIMIT
+            # Resident whenever some cluster size holds the slices at 4 rows.
+            assert plan.resident == any(
+                stream_smem_bytes(code, hidden, n_blocks, c, 4) <= SMEM_LIMIT
+                for c in CLUSTER_SIZES if stream_layout(hidden, c).slice_pad <= 512)
 
 
 @pytest.mark.parametrize("hidden,cluster", [(512, 8), (516, 8), (36, 16), (36, 8), (32, 1),

@@ -17,8 +17,10 @@ Cases, cluster kernel: the serving shapes (B 64, code 20, hidden 512, 1 block,
 cluster 8, 8 rows), the same at cluster 16, and hidden 32 at clusters 8 and 1,
 where the products are small and what is left is the fixed cost of each
 phase.  Streaming kernel: the WaveEq eval's shape (B 256, code 32, hidden 512,
-3 blocks, 45 steps) at its plan (cluster 8, 20 rows), and the 4-block serving
-shape (B 64, code 20, 100 steps) at its plan (cluster 16, 12 rows).
+3 blocks, 45 steps) at its plan (cluster 8, 20 rows), the 4-block serving
+shape (B 64, code 20, 100 steps) at its plan (cluster 16, 12 rows), and 8
+blocks at code 64, hidden 512 (B 64, 30 steps) at its plan (cluster 16, 12
+rows), where W1, the biases and W3 are read from L2, not resident.
 """
 
 from __future__ import annotations
@@ -36,10 +38,7 @@ sys.path.insert(0, str(ROOT))
 
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet  # noqa: E402
 from spatiotemporal_variable_separation_tpu_torch.ops import _build  # noqa: E402
-from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (  # noqa: E402
-    STREAM_STAGES,
-    pack_w2,
-)
+from spatiotemporal_variable_separation_tpu_torch.ops.rollout import pack_w2  # noqa: E402
 
 PHASES = {
     "mlp_resnet_rollout_cluster": (
@@ -52,13 +51,14 @@ PHASES = {
         "W3 split-K and sum", "partials to every rank", "cluster barrier 2", "t update",
         "out[k] write (per step)"),
 }
-CASES = [  # kernel, batch, code, hidden, n_blocks, cluster, rows, n_steps
-    ("mlp_resnet_rollout_cluster", 64, 20, 512, 1, 8, 8, 100),
-    ("mlp_resnet_rollout_cluster", 64, 20, 512, 1, 16, 8, 100),
-    ("mlp_resnet_rollout_cluster", 64, 20, 32, 1, 8, 8, 100),
-    ("mlp_resnet_rollout_cluster", 64, 20, 32, 1, 1, 8, 100),
-    ("mlp_resnet_rollout", 256, 32, 512, 3, 8, 20, 45),
-    ("mlp_resnet_rollout", 64, 20, 512, 4, 16, 12, 100),
+CASES = [  # kernel, batch, code, hidden, n_blocks, cluster, rows, n_steps, resident
+    ("mlp_resnet_rollout_cluster", 64, 20, 512, 1, 8, 8, 100, True),
+    ("mlp_resnet_rollout_cluster", 64, 20, 512, 1, 16, 8, 100, True),
+    ("mlp_resnet_rollout_cluster", 64, 20, 32, 1, 8, 8, 100, True),
+    ("mlp_resnet_rollout_cluster", 64, 20, 32, 1, 1, 8, 100, True),
+    ("mlp_resnet_rollout", 256, 32, 512, 3, 8, 20, 45, True),
+    ("mlp_resnet_rollout", 64, 20, 512, 4, 16, 12, 100, True),
+    ("mlp_resnet_rollout", 64, 64, 512, 8, 16, 12, 30, False),
 ]
 
 
@@ -91,7 +91,7 @@ def main() -> None:
         libs = dict(zip(PHASES, pool.map(build, PHASES)))
     dev = torch.device("cuda:0")
     gen = torch.Generator().manual_seed(0)
-    for name, batch, code, hidden, n_blocks, cluster, rows, n_steps in CASES:
+    for name, batch, code, hidden, n_blocks, cluster, rows, n_steps, resident in CASES:
         lib, phases = libs[name], PHASES[name]
         clocks = (ctypes.c_ulonglong * len(phases))()
         getattr(lib, f"{name}_phase_clocks")(clocks)  # clear
@@ -104,7 +104,7 @@ def main() -> None:
         stream = torch.cuda.current_stream().cuda_stream
         if name == "mlp_resnet_rollout":
             w2 = pack_w2(params, cluster)
-            err = lib.mlp_resnet_rollout_f32(*args, w2.data_ptr(), *shape, STREAM_STAGES, stream)
+            err = lib.mlp_resnet_rollout_f32(*args, w2.data_ptr(), *shape, int(resident), stream)
         else:
             err = lib.mlp_resnet_rollout_cluster_f32(*args, *shape, stream)
         if err != 0:
@@ -115,7 +115,8 @@ def main() -> None:
         steps = (n_steps - 1) * n_blocks
         per_step = [c / steps for c in clocks]
         print(f"{name}: B {batch}, code {code}, hidden {hidden}, {n_blocks} block(s), cluster "
-              f"{cluster}, {rows} rows: {sum(per_step):.0f} clocks a block-step")
+              f"{cluster}, {rows} rows{'' if resident else ', W1/biases/W3 from L2'}: "
+              f"{sum(per_step):.0f} clocks a block-step")
         for phase, c in zip(phases, per_step):
             print(f"  {phase:24s} {c:7.0f}")
 
