@@ -5,7 +5,9 @@ config of ``bench.py`` and scores it with both Moving MNIST protocols; then
 generates WaveEq on the card, trains both WaveEq recipes and scores them;
 then writes the 3D Chairs stand-in corpus, trains the chairs recipe and
 scores its content swap; then makes the TaxiBJ and SST stand-ins in memory,
-trains both recipes and scores them.
+trains both recipes and scores them; then trains the ``--no_s`` ablation,
+probes the rollout's stability (``diagnose``, ``--monitor_stability``) and
+drives the operations tooling.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -212,7 +214,41 @@ result line is printed):
        either kernel (``ConvResnet`` loops its module); per-sequence MSE and
        SSIM card against CPU on 2 batches of 16, and with
        ``reference_broadcast`` on 1.
-Each phase prints its seconds on a line of its own.
+14. ``--no_s``, the stability probe and the operations tooling, in a
+    temporary directory beside phase 8's digits and checkpoint:
+    a. the ``wave`` recipe with ``--no_s`` at full width (codes 32, MLP
+       1200, 3 blocks at H 512, B 128), f32, 6 steps through the train CLI
+       on a 10 x 90 ``gen_wave`` corpus made on the card: ``s_inv`` exactly 0
+       at every step, 0 launches; its f32 eval forecast (B 128 x 45 frames)
+       through the streaming kernel (1 launch), against the CPU within the
+       rollout tolerance, its frames within the module tolerance over the
+       steps with |T| <= 1e3 and within 1e-3 over all, S all ones;
+    c. ``--monitor_stability`` on a short f32 flagship run (B 32, 2 epochs
+       x 3 steps, a checkpoint an epoch) against the same run without it,
+       under ``cudnn.deterministic``: params, BatchNorm statistics and Adam
+       state bitwise equal, one ``stability.csv`` row and one cluster launch
+       a checkpoint; the time of one probe;
+    b. the ``diagnose`` CLI (``--epoch all``, B 32 x 20 steps) on 14c's
+       f32 flagship checkpoints (one cluster launch each) and on 14a's f32
+       WaveEq checkpoints (one streaming launch each), every report held
+       against the CPU probe of the same checkpoint within 1e-4 relative,
+       with the same verdict; then on phase 8's bf16 flagship checkpoints
+       (0 launches), whose verdicts it prints;
+    d. ``supervise`` over the port's train CLI in child processes (the
+       flagship, bf16 B 128, 2 epochs x 20 steps, ``cudnn.deterministic``
+       in each child): an uninterrupted run; the same run stopped once by
+       the supervisor's deadline, which its clock passes once the child
+       prints step 5 (SIGTERM, the guarded final save), and finished by a
+       ``--resume`` relaunch; the two final checkpoints bitwise equal; each
+       child prints its rollout launches (0) for the kernels line;
+    e. ``summarize`` over 14's experiments, ``visualize`` over phase 9's
+       archive, ``gen_synthetic mnist`` against the pinned sha256 of its
+       four idx files (no scikit-learn, no cv2), ``verify_corpus`` for
+       mnist (on that stand-in and ``make_mnist_test``'s set), wave (14a's
+       corpus) and chairs (a 5-object stand-in), each with exit 0; where
+       h5py is absent, ``verify_corpus taxibj`` fails naming it.
+Each phase, and each part of phase 14, prints its seconds on a line of its
+own.
 
 The line before the last is a JSON object with one entry per kernel (its
 serving-path launches, its launches on each eval path in ``launches_eval``,
@@ -221,7 +257,8 @@ on the WaveEq paths in ``launches_wave``, on the chairs paths in
 SST paths in ``launches_sst``, with its B 16 plan and times, the streaming
 kernel's ``wave_*`` times at the WaveEq shape, both kernels' ``chairs_*``
 times at the chairs shape, and the cluster kernel's ``taxibj_*`` times at
-B 128 x 8); the last is ``{"ok": true, "device": {...}}``.
+B 128 x 8, and its launches on phase 14's paths in ``launches_ops``); the
+last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -229,6 +266,8 @@ from __future__ import annotations
 import copy
 import csv
 import dataclasses
+import hashlib
+import importlib.util
 import itertools
 import json
 import os
@@ -238,6 +277,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -245,8 +285,12 @@ import torch
 from spatiotemporal_variable_separation_tpu_torch import ExperimentConfig
 from spatiotemporal_variable_separation_tpu_torch import checkpoint
 from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
+from spatiotemporal_variable_separation_tpu_torch.cli import diagnose as cli_diagnose
 from spatiotemporal_variable_separation_tpu_torch.cli import gen_synthetic as cli_gen_synthetic
 from spatiotemporal_variable_separation_tpu_torch.cli import main as cli_main
+from spatiotemporal_variable_separation_tpu_torch.cli import make_mnist_test as cli_make_mnist_test
+from spatiotemporal_variable_separation_tpu_torch.cli import summarize as cli_summarize
+from spatiotemporal_variable_separation_tpu_torch.cli import supervise as cli_supervise
 from spatiotemporal_variable_separation_tpu_torch.cli import (
     test_chairs_disentanglement as cli_test_chairs,
 )
@@ -255,6 +299,8 @@ from spatiotemporal_variable_separation_tpu_torch.cli import (
     test_mnist_disentanglement as cli_test_swap,
 )
 from spatiotemporal_variable_separation_tpu_torch.cli import test_wave as cli_test_wave
+from spatiotemporal_variable_separation_tpu_torch.cli import verify_corpus as cli_verify_corpus
+from spatiotemporal_variable_separation_tpu_torch.cli import visualize as cli_visualize
 from spatiotemporal_variable_separation_tpu_torch.cli.options import build_parser, config_from_args
 from spatiotemporal_variable_separation_tpu_torch.data import registry, synthetic_corpora, wave_eq
 from spatiotemporal_variable_separation_tpu_torch.data.chairs import Chairs
@@ -285,6 +331,11 @@ from spatiotemporal_variable_separation_tpu_torch.eval import wave as eval_wave
 from spatiotemporal_variable_separation_tpu_torch.eval.common import (
     Evaluator,
     per_sequence_metrics,
+)
+from spatiotemporal_variable_separation_tpu_torch.eval.diagnostics import (
+    diagnose,
+    finalize_probe,
+    make_rollout_probe,
 )
 from spatiotemporal_variable_separation_tpu_torch.eval.mnist_swap import SwapDataset
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
@@ -2661,6 +2712,469 @@ def phase12_13_only(dev=None) -> None:
         sst_phase(dev, work)
 
 
+# -- phase 14: --no_s, the stability probe and the operations tooling ------------
+
+NO_S_STEPS = 6              # the --no_s wave recipe, f32, 1 epoch on the card
+# gen_wave's corpus for 14a and verify_corpus wave: 10 sequences (8 train, 2
+# test) of 90 frames, 45 after the downsample by 2 (the eval's nt_cond + 40).
+OPS_WAVE_SEQS, OPS_WAVE_SEQ_LEN = 10, 90
+NO_S_EVAL_B = 128
+NO_S_T_COMFORT = 1e3        # 14a's frame tolerances, see no_s_wave
+NO_S_DEC_TOL = 1e-3
+PROBE_B, PROBE_STEPS = 32, 20           # the diagnose CLI's defaults
+# Gains, norms and S statistics of a probe, card against CPU (f32, TF32
+# off): the same f32 encoders and rollout summed in another order, ~1e-6.
+PROBE_RTOL = 1e-4
+MONITOR_B, MONITOR_EPOCHS, MONITOR_STEPS = 32, 2, 3
+SUPERVISED_EPOCHS, SUPERVISED_STEPS = 2, 20
+# 14d's stop: the supervisor's deadline is an hour away on its clock, and the
+# clock jumps past it once the child prints this step's loss line, so the
+# SIGTERM lands at that step or just after it, however fast the host starts.
+SUPERVISED_STOP_STEP = 5
+SUPERVISED_DEADLINE_MIN = 60.0
+SUPERVISED_CLOCK_JUMP_S = 10_000.0
+OPS_CHAIRS_OBJECTS = 5      # 4 train and 1 test object for verify_corpus chairs
+#: sha256 of ``gen_synthetic mnist --seed 0`` (``MNIST/raw/<file>``); the CPU
+#: test ``tests/test_torch_ops_tools.py`` pins the same.
+MNIST_STANDIN_SHA256 = {
+    "t10k-images-idx3-ubyte": "cb3385a9b99f9b3b13c948b0554a02d0eef407b209d998ccf910ded4c3468938",
+    "t10k-labels-idx1-ubyte": "957a673c0182b877a1b3a65c73ac4bf4e7dc94b49f1621c2da5ee997be1728ce",
+    "train-images-idx3-ubyte": "f5b66961e04f1062bf50ce4d6353db409c38aa9e4bdb2bb144443d8ac351a1dd",
+    "train-labels-idx1-ubyte": "6300936e6f8242fe267f7cbc323bd574be8f9184c5effdd4dbf00c8fe62146ff",
+}
+# The train CLI for 14d's children, with the cuDNN and TF32 settings of this
+# script, so that a run stopped and resumed can be held bitwise to one that
+# was not.
+# It prints the rollout kernel's launches at its end, stopped or not, for the
+# kernels line.
+DETERMINISTIC_ENTRY = """import json
+import sys
+
+import torch
+
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from spatiotemporal_variable_separation_tpu_torch.cli import main
+from spatiotemporal_variable_separation_tpu_torch.ops.rollout import mlp_resnet_rollout
+
+mlp_resnet_rollout.variant_launches = dict.fromkeys(mlp_resnet_rollout.variant_launches, 0)
+try:
+    main.main(sys.argv[1:])
+finally:
+    print("rollout launches: " + json.dumps(mlp_resnet_rollout.variant_launches), flush=True)
+"""
+
+
+def as_f64(model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` computing, and holding its parameters, in f64 (its modules'
+    ``dtype``/``out_dtype`` too)."""
+    model.double()
+    for m in model.modules():
+        for attr in ("dtype", "out_dtype"):
+            if hasattr(m, attr):
+                setattr(m, attr, torch.float64)
+    return model
+
+
+def no_s_wave(dev, work: str) -> dict:
+    """Phase 14a: the wave recipe with ``--no_s`` at full width, f32, trained
+    a few steps through the train CLI, then its eval forecast through the
+    streaming kernel against the CPU.  Returns the data dir, the xp dir and
+    the forecast's launches."""
+    data_dir = os.path.join(work, "wave_data")
+    wave_eq.generate_dataset(data_dir, OPS_WAVE_SEQS, OPS_WAVE_SEQ_LEN, seed=WAVE_SEED,
+                             device=dev)
+    xp = os.path.join(work, "xps", "wave_no_s")
+    argv = ["--xp_dir", xp, "--data_dir", data_dir, *WAVE_RECIPES["wave"], "--no_s",
+            "--precision", "f32", "--seed", "0", "--epochs", "1", "--steps_per_epoch",
+            str(NO_S_STEPS), "--chkpt_interval", "1", "--log_every", "1"]
+    print("train CLI: python -m spatiotemporal_variable_separation_tpu_torch.cli.main "
+          + " ".join(argv))
+    reset_launch_counts()
+    state = cli_main.main(argv)
+    train_launches = dict(mlp_resnet_rollout.variant_launches)
+    rows = [r for r in metrics_rows(xp) if not r["samples_per_sec"]]
+    s_inv = sorted({float(r["s_inv"]) for r in rows})
+    cfg = ExperimentConfig.from_json_file(os.path.join(xp, "params.json"))
+    print(f"  --no_s: S module {type(state.model.Es).__name__}, codes S {cfg.code_size_s} / T "
+          f"{cfg.code_size_t}, mixing {cfg.mixing}, steps {state.step}, s_inv logged {s_inv}, "
+          f"loss {[float(r['loss']) for r in rows]}, launches while training {train_launches}")
+    check(type(state.model.Es).__name__ == "ConstantS" and state.step == NO_S_STEPS
+          and cfg.no_s and cfg.mixing == "mul", "the --no_s run")
+    check(len(rows) == NO_S_STEPS and s_inv == [0.0], "s_inv is not exactly 0 under --no_s")
+    check(all(np.isfinite(float(r["loss"])) for r in rows), "--no_s loss rows")
+    check(train_launches == {"cluster": 0, "stream": 0}, "--no_s training launched the kernel")
+
+    model = state.model.eval()
+    train = wave_eq.WaveEq(data_dir, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred, True)
+    cond = np.stack([train[i][0] for i in range(NO_S_EVAL_B)])
+    n = WAVE_ROLLOUT_STEPS
+    reset_launch_counts()
+    with torch.inference_mode():
+        out, t_codes, s, _ = model.get_forecast(torch.from_numpy(cond).to(dev), n)
+    torch.cuda.synchronize()
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    cpu_model = copy.deepcopy(model).cpu()
+    exact_model = as_f64(copy.deepcopy(cpu_model))
+    t_card = t_codes.cpu().transpose(0, 1).contiguous()
+    with torch.inference_mode():
+        ref, ref_t, ref_s, _ = cpu_model.get_forecast(torch.from_numpy(cond), n)
+        # the decoder held alone, as phases 12a/13a hold each module: the
+        # card's frames and the CPU's f32 decode of the card's T codes, each
+        # against an f64 decode of the same codes
+        decoded = cpu_model._decode_all(ref_s, None, t_card)
+        exact = exact_model._decode_all(ref_s.double(), None, t_card.double())
+    rel_t = step_rel_err(t_card, ref_t.transpose(0, 1))
+    card = out.cpu().double()
+
+    def rel(a, steps=slice(None)):
+        return float((a[:, steps] - exact[:, steps]).abs().max()
+                     / exact[:, steps].abs().max())
+
+    # A trained --no_s model's T grows past ~1e9 by t+45 (no T penalty): its
+    # decoder's f32 sums then cancel terms ~1e10 into far smaller frames, and
+    # even the CPU's f32 decode is ~1e-4 of the frames' max from f64 there.
+    # The frames are held to the module tolerance over the steps whose |T|
+    # stays within NO_S_T_COMFORT, and to NO_S_DEC_TOL over all steps.
+    comfort = t_card.abs().flatten(1).amax(1) <= NO_S_T_COMFORT  # t_card: (n, B, code)
+    n_comfort = int(comfort.sum())
+    rel_comfort = rel(card, comfort) if n_comfort else float("inf")
+    rel_card, rel_cpu = rel(card), rel(decoded.double())
+    rel_out = float((out.cpu() - ref).abs().max() / ref.abs().max())
+    plan = card_plan(NO_S_EVAL_B, cfg.code_size_t, cfg.res_hidden_size, cfg.n_blocks)
+    print(f"  f32 eval forecast B {NO_S_EVAL_B} x {n} frames on the card: launches {launches}, "
+          f"plan {plan_text(plan)}; against the CPU: T codes step-relative {rel_t:.3e} "
+          f"(tolerance {ROLLOUT_REL_TOL:g}), max |T| {float(ref_t.abs().max()):.4g}; the frames "
+          f"against an f64 decode of the card's T codes: over the {n_comfort} steps with |T| <= "
+          f"{NO_S_T_COMFORT:g} {rel_comfort:.3e} of their max (tolerance {ENC_F32_TOL:g}), over "
+          f"all {n} {rel_card:.3e} (tolerance {NO_S_DEC_TOL:g}; the CPU's f32 decode "
+          f"{rel_cpu:.3e}); card against the CPU's own forecast {rel_out:.3e}; S all ones on "
+          f"both: {bool((s == 1).all() and (ref_s == 1).all())}")
+    check(launches == {"cluster": 0, "stream": 1} and plan.variant == "stream",
+          "the --no_s f32 forecast is not one streaming launch")
+    check(bool(torch.isfinite(out).all()) and tuple(out.shape) == (NO_S_EVAL_B, n, 64, 64, 1),
+          "the --no_s forecast's shape or values")
+    check(rel_t <= ROLLOUT_REL_TOL and rel_comfort <= ENC_F32_TOL and rel_card <= NO_S_DEC_TOL,
+          "the --no_s forecast, card against CPU")
+    check(bool((s == 1).all() and (ref_s == 1).all()), "the --no_s S code is not all ones")
+    return {"data_dir": data_dir, "xp": xp, "launches": launches,
+            "train_launches": train_launches}
+
+
+def monitor_bitwise(dev, data_dir: str, work: str) -> dict:
+    """Phase 14c: a short f32 flagship run with ``--monitor_stability``
+    against the same run without it, under cudnn.deterministic: the final
+    params, BatchNorm statistics and Adam state bitwise equal, one
+    ``stability.csv`` row a checkpoint, one rollout launch a probe.  Returns
+    the probed xp dir and the launches of each run."""
+    argv = flagship_argv("", data_dir, MONITOR_EPOCHS, MONITOR_STEPS, "--precision", "f32",
+                         "--batch_size", str(MONITOR_B), "--chkpt_interval", "1")
+    states, logs, launches, xps = {}, {}, {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for probe in (False, True):
+            cfg = config_from_args(build_parser().parse_args(argv)).validate()
+            xps[probe] = os.path.join(work, "xps", "flagship_f32" + ("_probed" if probe else ""))
+            cfg = dataclasses.replace(cfg, xp_dir=xps[probe])
+            os.makedirs(cfg.xp_dir)
+            cfg.save(os.path.join(cfg.xp_dir, "params.json"))
+            logs[probe] = []
+            reset_launch_counts()
+            states[probe] = run_training(cfg, device=dev, log_every=1, log_fn=logs[probe].append,
+                                         monitor_stability=probe)
+            torch.cuda.synchronize()
+            launches[probe] = dict(mlp_resnet_rollout.variant_launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ta, tb = train_state_tensors(states[False]), train_state_tensors(states[True])
+    differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    lines = {p: [m for m in logs[p] if m.startswith("epoch") and " step " in m] for p in logs}
+    with open(os.path.join(xps[True], "stability.csv")) as f:
+        header, *rows = f.read().splitlines()
+    probes = [m for m in logs[True] if m.startswith("stability @")]
+    print(f"--monitor_stability (f32 flagship B {MONITOR_B}, {MONITOR_EPOCHS} epochs x "
+          f"{MONITOR_STEPS} steps, cudnn.deterministic): {len(differ)} of {len(ta)} tensors "
+          f"(params, BatchNorm statistics, Adam state) differ from the run without it; loss "
+          f"lines equal: {lines[True] == lines[False]}; launches {launches}; stability.csv "
+          f"{header}: {rows}")
+    for m in probes:
+        print(f"  {m}")
+    n_ckpt = MONITOR_EPOCHS
+    check(states[True].model.training and not differ and lines[True] == lines[False]
+          and len(lines[True]) == MONITOR_EPOCHS * MONITOR_STEPS,
+          "--monitor_stability changed training")
+    check(header.split(",")[:5] == ["step", "wall_s", "stability_gain", "stability_s_mean_abs",
+                                    "stability_bn_max_var"] and len(rows) == n_ckpt
+          and len(probes) == n_ckpt, "stability.csv has not one row a checkpoint")
+    check(launches[False] == {"cluster": 0, "stream": 0}
+          and launches[True] == {"cluster": n_ckpt, "stream": 0},
+          "not one cluster launch a probe")
+    # what the probe costs: one more probe of the trained model, fenced
+    probe = make_rollout_probe(states[True].model, max(FLAGSHIP["nt_pred"], 10))
+    cond = np.random.default_rng(0).standard_normal(
+        (8, FLAGSHIP["nt_cond"], 64, 64, 1)).astype(np.float32)
+    finalize_probe(probe(None, cond))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    finalize_probe(probe(None, cond))
+    print(f"  one probe of the trained model (8 windows, {max(FLAGSHIP['nt_pred'], 10)} steps, "
+          f"the report fetched): {(time.perf_counter() - t) * 1e3:.1f} ms (host clock)")
+    return {"xp": xps[True], "launches": launches[True]}
+
+
+def diagnose_on_card(xp: str, label: str, variant) -> tuple:
+    """Phase 14b: the diagnose CLI over every checkpoint of ``xp`` on the
+    card; each report's gains, norms and verdict against the CPU probe of
+    the same checkpoint and batch.  ``variant``: the kernel each probe must
+    launch once (None: none, a bf16 model).  Returns (launches, reports)."""
+    argv = ["--xp_dir", xp, "--epoch", "all", "--batch_size", str(PROBE_B), "--n_steps",
+            str(PROBE_STEPS)]
+    print(f"diagnose [{label}]: python -m spatiotemporal_variable_separation_tpu_torch.cli."
+          f"diagnose " + " ".join(argv))
+    reset_launch_counts()
+    reports = cli_diagnose.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    expected = {v: (len(reports) if v == variant else 0) for v in launches}
+    print(f"  {len(reports)} checkpoint(s), rollout launches {launches}")
+    check(launches == expected, f"diagnose [{label}]: not one {variant} launch a checkpoint")
+    if variant is None:
+        return launches, reports
+    worst = 0.0
+    for name, rep in reports:
+        model, cfg = load_for_eval(xp, name, device="cpu")
+        cond = np.random.default_rng(0).standard_normal(
+            (PROBE_B, cfg.nt_cond) + cfg.frame_shape).astype(np.float32)  # the CLI's batch
+        ref = diagnose(model, None, cond, PROBE_STEPS, rep["horizon"], synthetic_cond=True)
+        errs = [float(np.max(np.abs(np.asarray(rep[k], np.float64) - np.asarray(ref[k]))
+                             / np.abs(np.asarray(ref[k], np.float64))))
+                for k in ("t_norms", "gains", "s_mean_abs", "s_norm", "t0_norm")]
+        worst = max(worst, *errs)
+        print(f"  checkpoint {name}: gain/step {rep['gain_geomean']:.4f} (CPU "
+              f"{ref['gain_geomean']:.4f}), verdict {rep['verdict']} (CPU {ref['verdict']}); "
+              f"worst relative difference of the norms, gains and S statistics {max(errs):.3e}")
+        check(ref["verdict"] == rep["verdict"], f"diagnose [{label}] {name}: verdicts differ")
+    print(f"  card against CPU: worst relative difference {worst:.3e} (tolerance {PROBE_RTOL:g})")
+    check(worst <= PROBE_RTOL, f"diagnose [{label}]: the probe disagrees with the CPU")
+    return launches, reports
+
+
+def supervised_train(dev, data_dir: str, work: str) -> dict:
+    """Phase 14d: the port's train CLI under ``supervise``, in child
+    processes: an uninterrupted run; the same run stopped once by the
+    supervisor's deadline (SIGTERM, the guarded final save), then finished by
+    a ``--resume`` relaunch; the two final checkpoints bitwise equal.  The
+    supervisor reads a clock that jumps past the deadline once the stopped
+    child prints step ``SUPERVISED_STOP_STEP``, so the stop lands at a known
+    step on any host.  Returns the rollout launches that the children count
+    and print."""
+    entry_dir = os.path.join(work, "entry")
+    os.makedirs(entry_dir)
+    with open(os.path.join(entry_dir, "deterministic_train.py"), "w") as f:
+        f.write(DETERMINISTIC_ENTRY)
+    root = os.path.dirname(os.path.abspath(__file__))
+    old_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join([entry_dir, root] + ([old_path] if old_path
+                                                                      else []))
+    total = SUPERVISED_EPOCHS * SUPERVISED_STEPS
+    xps = {k: os.path.join(work, "xps", f"supervised_{k}") for k in ("whole", "stopped")}
+    offset = [0.0]
+    real_time = cli_supervise.time
+    cli_supervise.time = types.SimpleNamespace(monotonic=lambda: real_time.monotonic() + offset[0])
+    launches = []
+
+    def run(xp, *extra, stop_at=None, **kw):
+        lines, t0 = [], time.monotonic()
+
+        def log_fn(line):
+            lines.append((time.monotonic() - t0, line))
+            if line.startswith("rollout launches: "):
+                launches.append(json.loads(line.split(": ", 1)[1]))
+            if stop_at is not None and line.startswith(f"epoch 0 step {stop_at}:"):
+                offset[0] += SUPERVISED_CLOCK_JUMP_S
+
+        argv = flagship_argv(xp, data_dir, SUPERVISED_EPOCHS, SUPERVISED_STEPS,
+                             "--log_every", "1", *extra)
+        rc = cli_supervise.supervise(argv, log_fn=log_fn, entry="deterministic_train",
+                                     startup_grace=0, **kw)
+        return rc, lines
+
+    try:
+        t = time.perf_counter()
+        rc, lines = run(xps["whole"])
+        step_at = {int(m.split(" step ")[1].split(":")[0]): s for s, m in lines
+                   if m.startswith("epoch ") and " step " in m}
+        banner = next(s for s, m in lines if m.startswith("training:"))
+        print(f"supervise, the uninterrupted run: rc {rc}, {len(lines)} lines in "
+              f"{time.perf_counter() - t:.1f} s; the child's banner {banner:.1f} s after the "
+              f"launch (interpreter, imports, the card, data and model), step lines from "
+              f"{min(step_at.values()):.1f} s to {max(step_at.values()):.1f} s")
+        check(rc == 0 and sorted(step_at) == list(range(1, total + 1)),
+              "the supervised run did not finish")
+        t = time.perf_counter()
+        rc, lines = run(xps["stopped"], stop_at=SUPERVISED_STOP_STEP,
+                        deadline_min=SUPERVISED_DEADLINE_MIN, stall_timeout=1e6)
+        text = "\n".join(m for _, m in lines)
+        stopped_at = int(torch.load(os.path.join(xps["stopped"], "checkpoints", "final",
+                                                 "train_state.pt"), map_location="cpu",
+                                    weights_only=True)["step"])
+        print(f"supervise with deadline_min {SUPERVISED_DEADLINE_MIN:g}, its clock jumped "
+              f"{SUPERVISED_CLOCK_JUMP_S:g} s once step {SUPERVISED_STOP_STEP} was out: rc {rc} "
+              f"in {time.perf_counter() - t:.1f} s; the child saved 'final' at step {stopped_at}")
+        for _, m in lines:
+            if m.startswith("[supervise]") or m.startswith("interrupted"):
+                print(f"  {m}")
+        check(rc == 0 and "deadline reached" in text
+              and "interrupted (Ctrl-C/SIGTERM) — saving final checkpoint" in text
+              and SUPERVISED_STOP_STEP <= stopped_at < total,
+              "the supervisor's deadline did not stop training mid-run with a final save")
+        t = time.perf_counter()
+        rc, lines = run(xps["stopped"], "--resume")
+        text = "\n".join(m for _, m in lines)
+        print(f"supervise, the --resume relaunch: rc {rc} in {time.perf_counter() - t:.1f} s; "
+              f"resumed from step {stopped_at}: {f'resumed from step {stopped_at}' in text}")
+        check(rc == 0 and f"resumed from step {stopped_at}" in text, "the supervised resume")
+    finally:
+        cli_supervise.time = real_time
+        if old_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old_path
+    cfg = ExperimentConfig.from_json_file(os.path.join(xps["whole"], "params.json"))
+    states = {k: checkpoint.restore_checkpoint(xp, create_train_state(cfg, SUPERVISED_STEPS,
+                                                                      device=dev), name="final")
+              for k, xp in xps.items()}
+    ta, tb = (train_state_tensors(states[k]) for k in ("whole", "stopped"))
+    differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    print(f"  the stopped-and-resumed run against the uninterrupted one (cudnn.deterministic in "
+          f"both children): steps {states['whole'].step} and {states['stopped'].step}; "
+          f"{len(differ)} of {len(ta)} tensors (params, BatchNorm statistics, Adam state) differ "
+          f"{differ[:3]}; rollout launches the three children counted: {launches}")
+    check(states["whole"].step == states["stopped"].step == total and ta.keys() == tb.keys()
+          and not differ, "the supervised stop and resume is not bitwise the uninterrupted run")
+    check(len(launches) == 3, "a supervised child did not print its rollout launches")
+    return {v: sum(n[v] for n in launches) for v in mlp_resnet_rollout.variant_launches}
+
+
+def ops_tools(work: str, phase9_xp: str, wave_dir: str) -> None:
+    """Phase 14e: summarize over 14's xp dirs, visualize over phase 9's eval
+    archive, gen_synthetic mnist against the pinned sha256, and
+    verify_corpus for mnist (on that stand-in), wave and chairs."""
+    lines = []
+    rows = cli_summarize.summarize_all(os.path.join(work, "xps"), log_fn=lines.append)
+    for line in lines:
+        print(f"  summarize: {line}")
+    names = {r["name"]: r for r in rows}
+    check(sorted(names) == sorted(os.listdir(os.path.join(work, "xps")))
+          and all(r.get("steps_logged", 0) > 0 for r in rows)
+          and names["flagship_f32_probed"].get("stability") is not None,
+          "summarize over phase 14's experiments")
+
+    from PIL import Image
+
+    frames = os.path.join(work, "frames")
+    cli_visualize.main(["--xp_dir", phase9_xp, "--n", "4", "--out", frames])
+    pngs = sorted(os.listdir(frames))
+    sizes = [Image.open(os.path.join(frames, p)).size for p in pngs]
+    print(f"  visualize over phase 9's archive: {pngs} ({sizes[0][0]} x {sizes[0][1]} px)")
+    check(len(pngs) >= 4 and all(p.endswith(".png") for p in pngs), "visualize")
+
+    mnist = os.path.join(work, "mnist_standin")
+    cli_gen_synthetic.main(["mnist", "--data_dir", mnist])
+    raw = os.path.join(mnist, "MNIST", "raw")
+    digests = {f: hashlib.sha256(open(os.path.join(raw, f), "rb").read()).hexdigest()
+               for f in sorted(os.listdir(raw))}
+    absent = {m: importlib.util.find_spec(m) is None for m in ("sklearn", "cv2", "h5py")}
+    print(f"  gen_synthetic mnist: sha256 as pinned: {digests == MNIST_STANDIN_SHA256}; "
+          f"absent on this machine: {absent}")
+    check(digests == MNIST_STANDIN_SHA256, "the MNIST stand-in's files")
+    check("sklearn" not in sys.modules and "cv2" not in sys.modules,
+          "gen_synthetic mnist imported scikit-learn or cv2")
+    cli_make_mnist_test.main(["--data_dir", mnist])
+    chairs = os.path.join(work, "chairs_standin")
+    cli_gen_synthetic.main(["chairs", "--data_dir", chairs, "--n_objects",
+                            str(OPS_CHAIRS_OBJECTS)])
+    for benchmark, data_dir in (("mnist", mnist), ("wave", wave_dir), ("chairs", chairs)):
+        rc = cli_verify_corpus.main([benchmark, "--data_dir", data_dir])
+        check(rc == 0, f"verify_corpus {benchmark}")
+    if absent["h5py"]:  # the HDF5 corpora fail, naming h5py
+        out = []
+        ok = cli_verify_corpus.verify("taxibj", work, log_fn=out.append)
+        fails = [line for line in out if "FAIL" in line]
+        print(f"  verify_corpus taxibj without h5py: {fails}")
+        check(not ok and fails and all("h5py" in line for line in fails),
+              "verify_corpus taxibj without h5py")
+
+
+def ops_phase(dev, work: str, data_dir: str, phase8_xp: str) -> dict:
+    """Phase 14: ``--no_s``, the stability probe (``diagnose`` and
+    ``--monitor_stability``) on the rollout kernel, ``supervise``,
+    ``summarize``, ``visualize``, ``verify_corpus`` and ``gen_synthetic
+    mnist``.  ``data_dir``/``phase8_xp``: phase 8's digits and bf16
+    checkpoint, which also holds phase 9's eval archive.  Returns the
+    kernels' launches on the new paths."""
+    t_phase = t = time.perf_counter()
+
+    def sub(label):
+        nonlocal t
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+
+    no_s = no_s_wave(dev, work)
+    sub("14a")
+    monitor = monitor_bitwise(dev, data_dir, work)
+    sub("14c")
+    flagship, _ = diagnose_on_card(monitor["xp"], "f32 flagship, cluster kernel", "cluster")
+    wave, _ = diagnose_on_card(no_s["xp"], "f32 WaveEq --no_s, 3 blocks, streaming kernel",
+                               "stream")
+    bf16, reports = diagnose_on_card(phase8_xp, "phase 8's bf16 flagship checkpoint", None)
+    for name, rep in reports:
+        print(f"  bf16 checkpoint {name}: gain/step {rep['gain_geomean']:.4f}, projected growth "
+              f"over t+{rep['horizon']} {rep['projected_growth_at_horizon']:.4g}x, mean|S| "
+              f"{float(rep['s_mean_abs']):.4g}, BatchNorm max running var "
+              f"{rep['bn']['max_var']:.4g}: verdict {rep['verdict']}")
+    sub("14b")
+    supervised = supervised_train(dev, data_dir, work)
+    sub("14d")
+    ops_tools(work, phase8_xp, no_s["data_dir"])
+    sub("14e")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return {"no_s": no_s["launches"], "no_s_train": no_s["train_launches"],
+            "monitor": monitor["launches"], "flagship": flagship, "wave": wave, "bf16": bf16,
+            "supervised": supervised}
+
+
+def phase14_only(dev=None) -> None:
+    """Phase 14 alone, a quicker run on the card than the whole script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase14_only()"
+
+    It trains the bf16 flagship through the train CLI for 2 epochs of 3
+    steps and archives 2 batches of its t10 eval, in place of phases 8 and
+    9, then runs phase 14."""
+    dev = torch.device("cuda:0") if dev is None else dev
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {nvidia_smi()}")
+    _build.build()
+    with tempfile.TemporaryDirectory() as work:
+        data_dir = os.path.join(work, "data")
+        os.makedirs(data_dir)
+        write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"),
+                         synthetic_digits(N_DIGITS))
+        write_idx_images(os.path.join(data_dir, "t10k-images-idx3-ubyte"),
+                         synthetic_digits(N_TEST_DIGITS, seed=1))
+        write_idx_labels(os.path.join(data_dir, "t10k-labels-idx1-ubyte"),
+                         (np.arange(N_TEST_DIGITS) % 10).astype(np.uint8))
+        make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
+        xp = os.path.join(work, "cli")
+        cli_main.main(flagship_argv(xp, data_dir, 2, 3, "--chkpt_interval", "1"))
+        cli_test_mnist.main(["--xp_dir", xp, "--data_dir", data_dir, "--nt_pred", "10",
+                             "--max_batches", "2"])
+        ops_phase(dev, work, data_dir, xp)
+
+
 def check_kernel_cases(cases: dict) -> dict:
     """Phase 3: each case through the kernel its plan names (the serving,
     chairs and ragged-slice cases also through the streaming kernel,
@@ -2932,12 +3446,13 @@ def main() -> None:
     bf16_ms = flagship_train(dev, smi, card)
     phase_done(7)
 
-    # -- 8. the train entry point, and 9. evaluation, in one working dir ------
-    with tempfile.TemporaryDirectory() as work:
-        served, xp, data_dir = train_entry_point(dev, bf16_ms, work)
-        print(f"rollout kernel launches on the from_xp_dir request: {served}")
-        phase_done(8)
-        evals = evaluation(dev, smi, model, cfg, xp, data_dir, work)
+    # -- 8. the train entry point, and 9. evaluation, in one working dir that
+    # phase 14 reads too (phase 8's digits and bf16 checkpoint, 9's archive)
+    work89 = tempfile.TemporaryDirectory()
+    served, xp, data_dir = train_entry_point(dev, bf16_ms, work89.name)
+    print(f"rollout kernel launches on the from_xp_dir request: {served}")
+    phase_done(8)
+    evals = evaluation(dev, smi, model, cfg, xp, data_dir, work89.name)
     b16 = evals["b16"]
     eval_ms = eval_kernel_timing(b16["t0"], b16["params"], flops_peak, bw_peak)
     phase_done(9)
@@ -2966,6 +3481,12 @@ def main() -> None:
                    "taxibj_addmm_loop_ms": taxibj["ms"]["addmm"],
                    "taxibj_bound_ms": taxibj["bound_ms"], "taxibj_bound_by": taxibj["bound_by"],
                    "taxibj_max_step_rel_err": taxibj["rel"], "taxibj_max_abs_err": taxibj["abs"]}
+
+    # -- 14. --no_s, the stability probe and the operations tooling (each
+    # sub-phase prints its own seconds) ------------------------------------------
+    with tempfile.TemporaryDirectory() as work:
+        ops = ops_phase(dev, work, data_dir, xp)
+    work89.cleanup()
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
 
     def chairs_keys(v: str) -> dict:
@@ -3039,6 +3560,18 @@ def main() -> None:
             "sst on the bf16 checkpoint (13d)": 0,
             "sst training and its resume (13c)": 0,
             "sst train step, card against CPU (13a)": 0},
+        "launches_ops": {
+            "diagnose --epoch all, f32 flagship checkpoints 1, 2, final (14b)":
+                ops["flagship"][v],
+            "diagnose --epoch all, f32 WaveEq --no_s checkpoints 1, final (14b)":
+                ops["wave"][v],
+            "diagnose --epoch all, phase 8's bf16 flagship checkpoints (14b)": ops["bf16"][v],
+            "--monitor_stability probes, f32 flagship, one a checkpoint (14c)":
+                ops["monitor"][v],
+            "--no_s f32 eval forecast, B 128 x 45 (14a)": ops["no_s"][v],
+            "--no_s training (14a)": ops["no_s_train"][v],
+            "supervised training, its stop and resume, counted in the children (14d)":
+                ops["supervised"][v]},
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

@@ -3,14 +3,11 @@
     python -m spatiotemporal_variable_separation_tpu_torch.cli.gen_synthetic CORPUS --data_dir D
 
 The port's counterpart of the JAX package's ``cli/gen_synthetic.py``, with
-its flags.  It writes the TaxiBJ, SST and Chairs stand-ins
-(``data/synthetic_corpora.py``; TaxiBJ and SST need h5py); the MNIST
-stand-in is not ported yet and raises."""
+its flags: the TaxiBJ, SST, Chairs and MNIST stand-ins
+(``data/synthetic_corpora.py``; TaxiBJ and SST need h5py; MNIST reads the
+vendored digits and needs neither scikit-learn nor cv2)."""
 
 import argparse
-
-# corpus -> the ROADMAP.md Queue 1 item that brings its generator
-LATER = {"mnist": "item 7e/8e (it needs scikit-learn's bundled digits)"}
 
 
 def main(argv=None):
@@ -28,17 +25,14 @@ def main(argv=None):
     p.add_argument("--n_objects", type=int, default=200, help="chairs")
     args = p.parse_args(argv)
 
-    if args.corpus in LATER:
-        raise NotImplementedError(
-            f"gen_synthetic {args.corpus}: the port generates the taxibj, sst and chairs "
-            "stand-ins so far; "
-            f"{args.corpus} comes with ROADMAP.md Queue 1, {LATER[args.corpus]}")
     from spatiotemporal_variable_separation_tpu_torch.data import synthetic_corpora as sc
 
     if args.corpus == "taxibj":
         sc.make_taxibj(args.data_dir, args.days_per_year, args.seed)
     elif args.corpus == "sst":
         sc.make_sst(args.data_dir, args.zones, args.n_days, args.seed, args.size)
+    elif args.corpus == "mnist":
+        sc.make_mnist_standin(args.data_dir, args.seed)
     else:
         sc.make_chairs(args.data_dir, args.n_objects, args.seed)
     print(f"synthetic {args.corpus} corpus written to {args.data_dir}")

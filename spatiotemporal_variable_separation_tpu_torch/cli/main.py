@@ -38,7 +38,8 @@ def main(argv=None):
                              "3-13 to <xp_dir>/profile/trace.json.")
     parser.add_argument("--monitor_stability", action="store_true",
                         help="Probe integrator gain / BN running-stat health at "
-                             "every periodic checkpoint (not ported yet: raises).")
+                             "every periodic checkpoint into <xp_dir>/stability.csv "
+                             "(an early warning of the eval-mode runaway).")
     add_platform_arg(parser)
     args = parser.parse_args(argv)
     device = device_from_args(args)

@@ -2,13 +2,13 @@
 
 The port's own copy of the JAX package's ``data/synthetic_corpora.py``:
 ``make_taxibj`` (``:38-66``), ``make_sst`` and ``_make_sst_basin``
-(``:69-186``) and ``make_chairs`` (``:237-271``).  The real corpora (the
-TaxiBJ h5 years, the SST NEMO exports, the 3D Warehouse renders) cannot be
-fetched here; the stand-ins write the same files, dtypes, layouts and
-timestamp conventions, byte-equal to the JAX package's for a seed (the same
-RNG calls in the same order), so the recipes run end to end.  Scores on them
-validate the pipeline, not the paper's numbers.  The MNIST stand-in is not
-ported yet (``cli/gen_synthetic.py`` names its ROADMAP item).
+(``:69-186``), ``make_mnist_standin`` (``:187-233``) and ``make_chairs``
+(``:237-271``).  The real corpora (MNIST, the TaxiBJ h5 years, the SST NEMO
+exports, the 3D Warehouse renders) are not redistributable; the stand-ins
+write the same files, dtypes, layouts and timestamp conventions, byte-equal
+to the JAX package's for a seed (the same RNG calls in the same order; for
+MNIST see ``make_mnist_standin``), so the recipes run end to end.  Scores on
+them validate the pipeline, not the paper's numbers.
 
 TaxiBJ and SST are split into an array function (``taxibj_years``,
 ``sst_zone_variables``) and a writer (``make_taxibj``, ``make_sst``, with
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import struct
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -175,6 +176,103 @@ def make_sst(data_dir: str, zones=range(1, 30), n_days: int = 1600, seed: int = 
                 d = f.create_dataset(name, data=raw)
                 for k, val in attrs.items():
                     d.attrs[k] = val
+
+
+#: scikit-learn's bundled 8x8 digits (``sklearn/datasets/data/digits.csv.gz``
+#: of scikit-learn 1.9.0, BSD 3-Clause licence), a copy of the test set of
+#: the UCI ML "Optical Recognition of Handwritten Digits" data by E. Alpaydin
+#: and C. Kaynak (UCI Machine Learning Repository, CC BY 4.0): 1,797 images of
+#: integers 0-16 and their labels, as uint8 ``images`` (1797, 8, 8) and
+#: ``labels`` (1797,).  Vendored so that the stand-in needs no scikit-learn.
+DIGITS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sklearn_digits.npz")
+
+
+def load_digits() -> Tuple[np.ndarray, np.ndarray]:
+    """The vendored digits: images (1797, 8, 8) and labels (1797,), uint8."""
+    with np.load(DIGITS_FILE) as z:
+        return z["images"], z["labels"]
+
+
+def _cubic_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Source indices (n_out, 4) and weights (n_out, 4), f64, of a bicubic
+    resize along one axis as cv2's ``INTER_CUBIC`` defines it: the Keys
+    kernel with a = -0.75, half-pixel centres, the border replicated."""
+    a = -0.75
+    f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(f)
+    x = f - s
+    w0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    w1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    w2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    weights = np.stack([w0, w1, w2, 1 - w0 - w1 - w2], axis=-1)
+    index = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3), 0, n_in - 1)
+    return index, weights
+
+
+def resize_cubic(images: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Bicubic resize of (N, h, w) images to (N, height, width), f32.
+
+    cv2's ``INTER_CUBIC`` in numpy (the JAX package upsamples with cv2 where
+    it is installed).  The separable sums run in f64, each term in a fixed
+    order, so the result is the same on every machine and within an f32
+    rounding of the exact interpolant; cv2 rounds its own f32 sums otherwise
+    (see ``make_mnist_standin``)."""
+    x = np.asarray(images, np.float64)
+    rows, wy = _cubic_taps(x.shape[1], height)
+    cols, wx = _cubic_taps(x.shape[2], width)
+    g = x[:, :, cols]                                   # (N, h, width, 4)
+    h = ((g[..., 0] * wx[:, 0] + g[..., 1] * wx[:, 1]) + g[..., 2] * wx[:, 2]
+         ) + g[..., 3] * wx[:, 3]                       # (N, h, width)
+    v = h[:, rows, :]                                   # (N, height, 4, width)
+    wy = wy[:, :, None]
+    out = ((v[:, :, 0] * wy[:, 0] + v[:, :, 1] * wy[:, 1]) + v[:, :, 2] * wy[:, 2]
+           ) + v[:, :, 3] * wy[:, 3]
+    return out.astype(np.float32)
+
+
+def _write_idx(path: str, arr: np.ndarray) -> None:
+    """Raw idx (ubyte) writer: magic = 0x0000'08'<ndim>, big-endian dims."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x0800 | arr.ndim))
+        for d in arr.shape:
+            f.write(struct.pack(">I", d))
+        f.write(arr.tobytes())
+
+
+def make_mnist_standin(data_dir: str, seed: int = 0, n_test: int = 500) -> None:
+    """An MNIST-layout idx corpus (``<data_dir>/MNIST/raw``) from the
+    vendored digits (``DIGITS_FILE``).
+
+    Each 8x8 digit (0-16) is cubic-upsampled to the 20x20 glyph box and
+    centred in a 28x28 frame, the layout of real MNIST, so the Moving MNIST
+    compositing geometry is unchanged.  A seeded stratified split keeps
+    ``n_test`` digits for the t10k files.  Real handwritten digits with
+    their labels, but only 1,797 of them: a stand-in where MNIST cannot be
+    fetched, not a claim of the paper's numbers.  Needs neither
+    scikit-learn nor cv2.  Against the JAX package, which upsamples with
+    cv2 (5.0.0, its default optimized path), the glyphs differ by 1 on 2 of
+    the 718,800 glyph pixels (``tests/test_torch_ops_tools.py`` holds this);
+    every other byte of the four files is equal.
+    """
+    images, labels = load_digits()
+    rng = np.random.RandomState(seed)
+    frames = np.zeros((len(images), 28, 28), np.uint8)
+    big = resize_cubic(images, 20, 20)
+    frames[:, 4:24, 4:24] = np.clip(big * np.float32(255.0 / 16.0), 0, 255).astype(np.uint8)
+
+    # stratified test split: n_test/10 a class, seeded
+    test_mask = np.zeros(len(labels), bool)
+    for c in range(10):
+        idx = np.flatnonzero(labels == c)
+        test_mask[rng.choice(idx, size=n_test // 10, replace=False)] = True
+
+    raw = os.path.join(data_dir, "MNIST", "raw")
+    os.makedirs(raw, exist_ok=True)
+    _write_idx(os.path.join(raw, "train-images-idx3-ubyte"), frames[~test_mask])
+    _write_idx(os.path.join(raw, "train-labels-idx1-ubyte"), labels[~test_mask])
+    _write_idx(os.path.join(raw, "t10k-images-idx3-ubyte"), frames[test_mask])
+    _write_idx(os.path.join(raw, "t10k-labels-idx1-ubyte"), labels[test_mask])
 
 
 def make_chairs(data_dir: str, n_objects: int = 200, seed: int = 0) -> None:

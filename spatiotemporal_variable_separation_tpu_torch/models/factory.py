@@ -5,11 +5,11 @@ Torch counterpart of the JAX package's ``models/factory.py:35-149``
 decoders (in any pairing the config allows), the ResNet-18 encoder, the SST
 encoder and decoders, and the integrator the config names (the MLP-ResNet,
 or the convolutional one iff ``cfg.fully_conv_integrator``), under the three
-precision policies.  The constant S module (``--no_s``) is not ported yet.
-Every weight is
-drawn from the caller's ``torch.Generator`` on the CPU, so one seed builds
-the same model on every machine, and the model is then moved to
-``device``.  Parameters are f32 under every policy.
+precision policies; under ``--no_s`` the constant S module takes the S
+encoder's place (JAX ``factory.py:129-130``).  Every weight is drawn from
+the caller's ``torch.Generator`` on the CPU, so one seed builds the same
+model on every machine, and the model is then moved to ``device``.
+Parameters are f32 under every policy.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from spatiotemporal_variable_separation_tpu_torch.core.config import (
     ConfigError,
     ExperimentConfig,
 )
+from spatiotemporal_variable_separation_tpu_torch.models.constant import ConstantS
 from spatiotemporal_variable_separation_tpu_torch.models.conv import (
     DCGAN64Decoder,
     DCGAN64Encoder,
@@ -96,10 +97,6 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     cfg = cfg.validate()
     if cfg.decoder_arch not in DECODER_ARCH_TYPES:  # e.g. resnet with no decoder named
         raise ValueError(f"unknown decoder architecture {cfg.decoder_arch!r}")
-    if cfg.no_s:
-        raise NotImplementedError(
-            "--no_s: the constant S module (ConstantS) is not ported yet; it comes with "
-            "ROADMAP.md Queue 1, slice 7 (item 7e)")
     if cfg.architecture == "resnet" and cfg.skipco:
         # The JAX package says its factory forbids this (models/resnet18.py:8-10)
         # but its config validation does not: the encoder returns a bare code
@@ -109,7 +106,10 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     g = generator
     kw = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g,
               dtype=compute_dtype(cfg.precision))
-    es = _encoder(cfg, cfg.code_size_s, **kw)
+    if cfg.no_s:  # draws nothing from the generator, as it has no weights
+        es = ConstantS(cfg.code_size_t, dtype=kw["dtype"])
+    else:
+        es = _encoder(cfg, cfg.code_size_s, **kw)
     et = _encoder(cfg, cfg.code_size_t, **kw)
     decoder = _decoder(cfg, **kw)
     int_kw = dict(init_type=cfg.init_resnet, init_gain=cfg.gain_resnet, generator=g,

@@ -11,7 +11,10 @@ Torch counterpart of the JAX package's ``train/loop.py``, on one device:
 * checkpoints carry the optimizer state and resume bit-exactly mid-epoch:
   every draw of a step is a function of ``(cfg.seed, step)``;
 * SIGTERM and Ctrl-C stop between steps and still save ``final``
-  (``train.py:172-175``).
+  (``train.py:172-175``);
+* ``monitor_stability`` probes the rollout's stability at every periodic
+  checkpoint (``eval/diagnostics.py``) and leaves training exactly as it
+  would have been without the probe.
 """
 
 from __future__ import annotations
@@ -67,6 +70,53 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _stability_monitor(state: TrainState, cfg: ExperimentConfig,
+                       log_fn: Callable[[str], None]):
+    """The ``--monitor_stability`` hook (JAX ``train/loop.py:122-175``):
+    ``(check(epoch), logger)``.  ``check`` probes ``max(nt_pred, 10)`` steps
+    of a seeded standard-normal batch of 8 windows, logs a line and appends
+    a row to ``<xp_dir>/stability.csv`` (its own file: ``metrics.csv``'s
+    columns are fixed at its first row).  The probe runs the model in eval
+    mode under ``no_grad`` and restores its mode, and draws from no torch
+    generator, so training goes on exactly as it would have without it."""
+    import numpy as np
+
+    from spatiotemporal_variable_separation_tpu_torch.eval.diagnostics import (
+        bn_health,
+        finalize_probe,
+        is_unstable,
+        make_rollout_probe,
+        projected_growth,
+        protocol_horizon,
+    )
+
+    probe = make_rollout_probe(state.model, max(cfg.nt_pred, 10))
+    # verdicts judge the growth compounded over the dataset's eval protocol.
+    horizon = protocol_horizon(cfg.data, cfg.nt_pred)
+    cond = np.random.default_rng(0).standard_normal(
+        (8, cfg.nt_cond) + cfg.frame_shape).astype(np.float32)
+    slog = (MetricsLogger(cfg.xp_dir, "stability.csv")
+            if os.path.isdir(cfg.xp_dir) else None)
+
+    def check(epoch: int) -> None:
+        rep = finalize_probe(probe(state.model, cond))
+        bn = bn_health(state.model)
+        # noise conditioning: |S| is indicative only, the verdict rests on
+        # the gain and BatchNorm health.
+        bad = is_unstable(rep["gain_geomean"], bn["max_var"], None, horizon=horizon)
+        growth = projected_growth(rep["gain_geomean"], horizon)
+        log_fn(f"stability @ epoch {epoch}: gain/step {rep['gain_geomean']:.3f} "
+               f"({growth:.3g}x over the t+{horizon} protocol), "
+               f"|S| {float(rep['s_mean_abs']):.3g}, BN max var {bn['max_var']:.3g}"
+               + ("  ** UNSTABLE **" if bad else ""))
+        if slog is not None:
+            slog.log(state.step, {"stability_gain": rep["gain_geomean"],
+                                  "stability_s_mean_abs": float(rep["s_mean_abs"]),
+                                  "stability_bn_max_var": bn["max_var"]})
+
+    return check, slog
+
+
 def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: int = 50,
                  log_fn: Callable[[str], None] = print, resume: bool = False,
                  profile: bool = False, monitor_stability: bool = False,
@@ -80,10 +130,6 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
     between loss lines (0: none)."""
     cfg = cfg.validate()
     refuse_parallel(cfg)
-    if monitor_stability:
-        raise NotImplementedError(
-            "--monitor_stability probes with eval/diagnostics.py, which the port has not "
-            "yet; it comes with ROADMAP.md Queue 1, slice 10 (operations tooling)")
     device = resolve_device(device, "run_training")
     # Freeze steps_per_epoch across resumes: the MultiStep schedule is
     # step // steps_per_epoch, so a resumed run with another dataset size or
@@ -131,6 +177,9 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
            f"{cfg.epochs} epochs x {n_steps} steps, batch {cfg.batch_size}, "
            f"precision {cfg.precision}")
     mlog = MetricsLogger(cfg.xp_dir) if os.path.isdir(cfg.xp_dir) else None
+    stability_check, slog = None, None
+    if monitor_stability:
+        stability_check, slog = _stability_monitor(state, cfg, log_fn)
     t_start = time.time()
 
     # Preemption safety: a SIGTERM sets a flag that the loop checks between
@@ -227,6 +276,12 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
             if cfg.chkpt_interval is not None and (epoch + 1) % cfg.chkpt_interval == 0:
                 # epoch-numbered like the reference's ov_Es_{N}.pt suffixes.
                 save_checkpoint(cfg.xp_dir, state, name=str(epoch + 1))
+                if stability_check is not None:
+                    stability_check(epoch + 1)
+            elif stability_check is not None and cfg.chkpt_interval is None:
+                # no periodic checkpoints: probe every epoch, so the flag is
+                # never a silent no-op on the long runs it was built for.
+                stability_check(epoch + 1)
     except KeyboardInterrupt:
         log_fn("interrupted (Ctrl-C/SIGTERM) — saving final checkpoint")
     finally:
@@ -244,7 +299,8 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
             flush_pending()  # lagged boundary line, if one is still held
         except RuntimeError:
             pass
-        if mlog is not None:
-            mlog.close()
+        for logger in (mlog, slog):
+            if logger is not None:
+                logger.close()
     log_fn(f"total time {time.time() - t_start:.1f}s")
     return state

@@ -1,1 +1,2 @@
-"""Weight transfer from the JAX package's variables."""
+"""Weight transfer from the JAX package's variables, profiling, config I/O
+helpers and filmstrip rendering."""

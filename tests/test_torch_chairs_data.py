@@ -143,15 +143,17 @@ def test_gen_synthetic(tmp_path, capsys, monkeypatch):
     assert f"synthetic chairs corpus written to {tmp_path}" in capsys.readouterr().out
     assert len(os.listdir(tmp_path / "rendered_chairs")) == 3
     # taxibj and sst are written since ROADMAP items 7+8c/d (tests/test_torch_taxibj_sst_data.py
-    # holds them byte-equal to the JAX package's); mnist still raises
+    # holds them byte-equal to the JAX package's), mnist since item 7e/8e
+    # (tests/test_torch_ops_tools.py holds it)
     tgen_synthetic.main(["taxibj", "--data_dir", str(tmp_path / "taxibj"),
                          "--days_per_year", "2"])
     assert len(os.listdir(tmp_path / "taxibj")) == 4
     tgen_synthetic.main(["sst", "--data_dir", str(tmp_path / "sst"), "--zones", "3", "4",
                          "--n_days", "5", "--size", "16"])
     assert sorted(os.listdir(tmp_path / "sst")) == ["data_3.nc", "data_4.nc"]
-    with pytest.raises(NotImplementedError, match="7e/8e"):
-        tgen_synthetic.main(["mnist", "--data_dir", str(tmp_path / "mnist")])
-    assert not os.path.exists(tmp_path / "mnist")
+    tgen_synthetic.main(["mnist", "--data_dir", str(tmp_path / "mnist")])
+    assert sorted(os.listdir(tmp_path / "mnist" / "MNIST" / "raw")) == [
+        "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte", "train-images-idx3-ubyte",
+        "train-labels-idx1-ubyte"]
     assert _flags(_parser_of(tgen_synthetic.main, monkeypatch)) == _flags(
         _parser_of(jgen_synthetic.main, monkeypatch))

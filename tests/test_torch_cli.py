@@ -124,8 +124,11 @@ def test_main_trains_checkpoints_and_resumes_on_the_cpu(tmp_path):
     state = tmain.main(argv + ["--epochs", "2", "--resume"])
     assert state.step == 4
     assert sorted(os.listdir(tmp_path / "xp" / "checkpoints")) == ["1", "2", "final"]
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tmain.main(argv + ["--epochs", "1", "--monitor_stability"])
+    # --monitor_stability (slice 10): a probe at each periodic checkpoint
+    state = tmain.main(argv + ["--epochs", "3", "--resume", "--monitor_stability"])
+    assert state.step == 6
+    with open(tmp_path / "xp" / "stability.csv") as f:
+        assert [row.split(",")[0] for row in f.read().splitlines()[1:]] == ["6"]
     # TaxiBJ trains (item 7+8c): one step of a small VGG on the stand-in
     taxibj = tmp_path / "taxibj"
     make_taxibj(str(taxibj), days_per_year=10)

@@ -193,21 +193,19 @@ def test_bf16_serving_is_refused(monkeypatch):
     assert calls == []
 
 
-@pytest.mark.parametrize("overrides,match", [
-    (dict(decoder_architecture="vgg"), None),   # ported with item 7+8c
-    (dict(architecture="vgg"), None),
-    (dict(no_s=True, code_size_s=8), "item 7e"),
+@pytest.mark.parametrize("overrides", [
+    dict(decoder_architecture="vgg"),   # ported with item 7+8c
+    dict(architecture="vgg"),
+    dict(no_s=True, code_size_s=8),     # ported with item 7e (ConstantS)
 ])
-def test_factory_refuses_what_the_port_lacks(overrides, match):
-    """What the port lacks raises, naming its ROADMAP item; the vgg encoder
-    and decoder, refused before item 7+8c was ported, now build."""
+def test_factory_builds_what_the_port_once_refused(overrides):
+    """The vgg encoder and decoder (item 7+8c) and the constant S module of
+    ``--no_s`` (item 7e), which the factory refused before they were
+    ported, build and forecast."""
     cfg = ExperimentConfig(**{**SMALL, **overrides})
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            build_separable_network(cfg, torch.device("cpu"), GEN)
-        return
     model = build_separable_network(cfg, torch.device("cpu"), GEN)
-    assert "VGG64" in type(model.Es).__name__ + type(model.decoder).__name__
+    names = type(model.Es).__name__ + type(model.decoder).__name__
+    assert ("ConstantS" in names) if cfg.no_s else ("VGG64" in names)
     with torch.no_grad():
         out = model.eval().get_forecast(torch.rand(2, 5, 64, 64, 1), 3)[0]
     assert out.shape == (2, 3, 64, 64, 1)

@@ -204,12 +204,15 @@ def test_profile_writes_a_chrome_trace(tmp_path, mnist_dir):
 
 def test_refusals(tmp_path, mnist_dir, monkeypatch):
     cfg = _cfg(tmp_path / "xp", mnist_dir, epochs=1, steps_per_epoch=1)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        run_training(cfg, device="cpu", monitor_stability=True)
-    # TaxiBJ trains (item 7+8c); the constant S module (item 7e) still raises
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        run_training(ExperimentConfig(**{**SMALL, "no_s": True, "code_size_s": 8}),
-                     device="cpu", dataset=[])
+    # --monitor_stability and --no_s, refused until slice 10 ported them, run
+    logs = []
+    probed = _cfg(tmp_path / "probed", mnist_dir, epochs=1, steps_per_epoch=1)
+    run_training(probed, device="cpu", monitor_stability=True, log_fn=logs.append)
+    assert any(line.startswith("stability @ epoch 1: gain/step") for line in logs)
+    assert os.path.isfile(tmp_path / "probed" / "stability.csv")
+    state = run_training(_cfg(tmp_path / "no_s", mnist_dir, epochs=1, steps_per_epoch=1,
+                              no_s=True, code_size_s=8), device="cpu", log_fn=logs.append)
+    assert state.step == 1 and type(state.model.Es).__name__ == "ConstantS"
     for kw in ({"num_devices": 2}, {"model_parallel": 2, "num_devices": 2}):
         with pytest.raises(NotImplementedError, match="slice 9"):
             run_training(ExperimentConfig(**{**SMALL, **kw}), device="cpu")
