@@ -7,7 +7,8 @@ then writes the 3D Chairs stand-in corpus, trains the chairs recipe and
 scores its content swap; then makes the TaxiBJ and SST stand-ins in memory,
 trains both recipes and scores them; then trains the ``--no_s`` ablation,
 probes the rollout's stability (``diagnose``, ``--monitor_stability``) and
-drives the operations tooling.
+drives the operations tooling; then trains data- and tensor-parallel and
+evaluates and serves over a mesh, as far as one card can show.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -247,8 +248,41 @@ result line is printed):
        mnist (on that stand-in and ``make_mnist_test``'s set), wave (14a's
        corpus) and chairs (a 5-object stand-in), each with exit 0; where
        h5py is absent, ``verify_corpus taxibj`` fails naming it.
-Each phase, and each part of phase 14, prints its seconds on a line of its
-own.
+15. data and tensor parallelism (``parallel/``) on the one card, in a
+    temporary directory beside phase 9's test set.  One card cannot show NCCL
+    across ranks or hosts; it shows a world-1 NCCL group, two processes
+    sharing the card over gloo, and a mesh that names the card twice:
+    a. a world-1 NCCL group on the card: 3 bf16 flagship steps (B 128)
+       through DDP and the global-batch BatchNorm, bitwise against the plain
+       step under ``cudnn.deterministic`` (params, statistics, Adam state);
+    b. two ranks sharing the card over gloo (``parallel.distributed.launch``),
+       the global batch B 128 = 2 x 64 of uniform noise: one f64 and one f32
+       (TF32 off) step against one process on the card: the loss and the
+       BatchNorm statistics at the CPU test's tolerances in both, the
+       rank-averaged gradients at its 1e-4 in f64 and, in f32, each side
+       within phase 6's tolerance of the f64 step (see PAR_GRAD_TOL); the
+       statistics, gradients and logged loss equal on both ranks; then the
+       bf16 flagship's ms/step and samples/s beside phase 7's, and each
+       rank's seconds from the spawn to the end of each stage.  15a-c launch
+       the rollout kernel 0 times (counted over all of their steps);
+    c. in the world-1 NCCL group, tensor parallel at (data 1, model 1): gloo
+       cannot carry DTensor's collectives of CUDA tensors (see
+       ``tensor_parallel_world_one``), so the flagship's kernels take the
+       placements of the (1, 2) mesh on a model axis of one rank; one f32
+       SGD step held to the JAX package's tolerances against one process;
+    d. ``Evaluator`` over the mesh (cuda:0, cuda:0) on phase 3's f32 seed-0
+       model and phase 9's test set, at B 16 and a ragged B 13: one cluster
+       launch a shard a batch, the forecasts held against one device at the
+       forecast tolerances, and sequences/s of each;
+    e. ``Forecaster`` over the same mesh at B 64 x 100: two launches a
+       request (each shard's plan printed), the answers held against one
+       device, p50/p99 of each;
+    f. ``cli.test_wave --devices 2`` on one card raises JAX's ``requested 2
+       devices, have 1``; ``--devices 1`` runs (the wave recipe's f32 seed-0
+       checkpoint on a small ``gen_wave`` corpus, through the streaming
+       kernel).
+Each phase, and each part of phases 14 and 15, prints its seconds on a line
+of its own; a line before the JSON lines lists every phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel (its
 serving-path launches, its launches on each eval path in ``launches_eval``,
@@ -257,8 +291,9 @@ on the WaveEq paths in ``launches_wave``, on the chairs paths in
 SST paths in ``launches_sst``, with its B 16 plan and times, the streaming
 kernel's ``wave_*`` times at the WaveEq shape, both kernels' ``chairs_*``
 times at the chairs shape, and the cluster kernel's ``taxibj_*`` times at
-B 128 x 8, and its launches on phase 14's paths in ``launches_ops``); the
-last is ``{"ok": true, "device": {...}}``.
+B 128 x 8, its launches on phase 14's paths in ``launches_ops`` and on
+phase 15's paths in ``launches_parallel``); the last is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1813,7 +1848,7 @@ def wave_train(dev, data_dir: str, work: str, wave_gen: DeviceWaveEq) -> dict:
             print(f"  epoch {e}: {sps:.1f} samples/s = {cfg.batch_size / sps * 1e3:.3f} ms/step"
                   + (" (includes the first step's warm-up)" if e == 0 else ""))
         check(len(epochs) == WAVE_EPOCHS, f"{kind}: one samples/s row an epoch")
-        gen = wave_gen if kind == "wave" else registry.make_device_generator(cfg, dev)
+        gen = wave_gen if kind == "wave" else registry.make_device_generator(cfg, device=dev)
         step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
         for _ in range(3):
             step(state)
@@ -2101,7 +2136,7 @@ def chairs_data(dev, data_dir: str) -> DeviceChairs:
     check(pngs == CHAIRS_OBJECTS * 62, "the stand-in corpus's PNG count")
     cfg = chairs_config(data_dir, seed=0)
     t = time.perf_counter()
-    gen = registry.make_device_generator(cfg, dev)
+    gen = registry.make_device_generator(cfg, device=dev)
     load_s = time.perf_counter() - t
     check(isinstance(gen, DeviceChairs) and gen.device.type == dev.type,
           "the registry's chairs generator")
@@ -3175,6 +3210,447 @@ def phase14_only(dev=None) -> None:
         ops_phase(dev, work, data_dir, xp)
 
 
+# -- phase 15: data and tensor parallelism on one card ---------------------
+# 15b's two processes share the card over gloo; 15a's group is one rank over
+# NCCL.  One card cannot show NCCL across ranks or several hosts.
+PAR_TIMEOUT_S = 600.0
+PAR_BF16_WARMUP, PAR_BF16_STEPS = 3, 10
+# 15b, two ranks against one process on the card: the CPU test's tolerances
+# (tests/test_torch_parallel_train.py): the loss within rel 1e-4, the
+# rank-averaged gradients within 1e-4 of each layer's max |g|, the BatchNorm
+# statistics within 1e-5 of each layer's max.  They hold in f64.  In f32
+# (TF32 off) the loss and statistics hold them, but at full width the
+# gradients of two f32 sums of other orders part by more (measured 1.45e-2
+# of Es.stage_2's max, where the CPU test's small widths show 1e-5): each
+# f32 step is then held to the f64 step at phase 6's f32 tolerance,
+# TRAIN_GRAD_TOL.
+PAR_LOSS_RTOL, PAR_GRAD_TOL, PAR_STATS_TOL = 1e-4, 1e-4, 1e-5
+# 15c, tensor parallel (1, 2) against one process, one SGD step at lr 1e-2:
+# the JAX package's tolerances (tests/test_tensor_parallel.py:110-134).
+TP_SGD_LR, TP_LOSS_RTOL, TP_PARAM_ATOL = 1e-2, 1e-4, 2e-5
+PAR_EVAL_RAGGED = 13        # 15d's ragged batch: padded to 14, two shards of 7
+
+
+def par_seq(cfg) -> torch.Tensor:
+    """Phase 15's fixed global batch, on the host: uniform noise from a seed,
+    as the CPU test's (tests/torch_parallel_jobs.py:global_batch).  Phase 7's
+    moving squares are mostly exact zeros, whose activations sit on the
+    LeakyReLU kink: there two f32 sums of other orders flip branches (on the
+    CPU at nf 8, B 8: gradients 1.9e-3 of a layer's max apart in f32, 1.6e-14
+    in f64)."""
+    seq = np.random.default_rng(1).random(
+        (cfg.batch_size, cfg.nt_cond + cfg.nt_pred) + cfg.frame_shape, dtype=np.float32)
+    return torch.from_numpy(seq)
+
+
+def par_step_result(state, metrics) -> dict:
+    """Metrics, whole gradients and params (gathered from their shards) and
+    the BatchNorm statistics of a state after a step, on the host."""
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().double().cpu()
+
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: whole(p.grad) for n, p in state.model.named_parameters()},
+            "params": {n: whole(p) for n, p in state.model.named_parameters()},
+            "stats": bn_stats(state.model)}
+
+
+def par_sgd_state(cfg, dev):
+    state = create_train_state(cfg, steps_per_epoch=100, device=dev)
+    state.optimizer = torch.optim.SGD(state.model.parameters(), lr=TP_SGD_LR)
+    state.optimizer.lr_schedule = lambda step: TP_SGD_LR
+    return state
+
+
+def parallel_rank(out: str, t_launch: float) -> None:
+    """One of 15b's two ranks, both on this card over gloo: (1) one f32 and
+    one f64 step of the flagship on the global batch split in two, data
+    parallel; (2) the bf16 flagship's steps timed.  Writes
+    ``par_rank<r>.pt``: the results, the rollout kernel's launches over all
+    of the rank's steps, and the seconds from ``t_launch`` (the parent's
+    ``time.time()`` before the spawn) to each stage's end."""
+    import torch.distributed as dist
+
+    from spatiotemporal_variable_separation_tpu_torch.parallel import make_mesh, shard_batch
+
+    reset_launch_counts()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, res = dist.get_rank(), {"seconds": {"in the rank's function": time.time() - t_launch}}
+    dp = make_mesh()
+    cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
+    seq = par_seq(cfg)
+    state = create_train_state(cfg, steps_per_epoch=100, device=dp.local_device)
+    step = make_train_step(state.model, cfg, state.optimizer, dp)
+    cond, target = shard_batch(dp, (seq[:, :cfg.nt_cond], seq[:, cfg.nt_cond:]))
+    res["dp"] = par_step_result(state, step(state, cond, target, t_random=TRAIN_CHECK_T_RANDOM))
+    res["dp"]["rows"] = cond.shape[0]
+    res["seconds"]["f32 step"] = time.time() - t_launch
+    del state, step
+    state = create_train_state(cfg, steps_per_epoch=100, device=dp.local_device)
+    as_f64(state.model)
+    step = make_train_step(state.model, cfg, state.optimizer, dp)
+    res["dp64"] = par_step_result(state, step(state, cond.double(), target.double(),
+                                              t_random=TRAIN_CHECK_T_RANDOM))
+    res["seconds"]["f64 step"] = time.time() - t_launch
+    del state, step
+    bf16 = ExperimentConfig(**FLAGSHIP)
+    state = create_train_state(bf16, steps_per_epoch=100, device=dp.local_device)
+    step = make_train_step(state.model, bf16, state.optimizer, dp)
+    for _ in range(PAR_BF16_WARMUP):
+        step(state, cond, target)
+    torch.cuda.synchronize()
+    res["seconds"]["bf16 warm-up"] = time.time() - t_launch
+    dist.barrier()
+    t = time.perf_counter()
+    for _ in range(PAR_BF16_STEPS):
+        m = step(state, cond, target)
+    torch.cuda.synchronize()
+    res["bf16_ms"] = (time.perf_counter() - t) / PAR_BF16_STEPS * 1e3
+    res["bf16_loss"] = float(m["loss"])
+    res["seconds"]["bf16 timed steps"] = time.time() - t_launch
+    res["launches"] = dict(mlp_resnet_rollout.variant_launches)
+    torch.save(res, os.path.join(out, f"par_rank{rank}.pt"))
+
+
+def tensor_parallel_world_one(dev) -> None:
+    """15c: tensor parallel over the world-1 NCCL group, at (data 1, model 1).
+
+    The card has one device, and gloo cannot carry DTensor's collectives of
+    CUDA tensors: a two-rank gloo job on the card segfaulted in the
+    functional collectives' ``wait_tensor`` of a ``full_tensor()`` (one probe
+    run, torch 2.11.0+cu128), where plain ``all_gather_into_tensor`` worked.
+    So the model axis has one rank.  JAX's rule shards nothing at a model
+    size of 1, so the state takes the placements of the (1, 2) mesh of two
+    ranks (``state_shardings`` of a one-process mesh naming the card twice):
+    every kernel the two ranks would split is a DTensor, ``Shard`` on an
+    axis of one rank, and runs through the DTensor Linear and the gathered
+    convolutions.  One f32 SGD step against one process, at the JAX
+    package's tolerances."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from spatiotemporal_variable_separation_tpu_torch.parallel import (
+        make_mesh,
+        shard_state,
+        state_shardings,
+    )
+    from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        Mesh,
+    )
+
+    grid = np.empty((1, 1), dtype=object)
+    grid[0, 0] = dev
+    tp = Mesh(grid, (DATA_AXIS, MODEL_AXIS),
+              DeviceMesh(dev.type, [[0]], mesh_dim_names=(DATA_AXIS, MODEL_AXIS)))
+    cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
+    seq = par_seq(cfg).to(dev)
+    cond, target = seq[:, :cfg.nt_cond], seq[:, cfg.nt_cond:]
+    state = par_sgd_state(cfg, dev)
+    shardings = state_shardings(state.model, make_mesh(devices=[dev, dev], model_parallel=2))
+    shard_state(state, tp, shardings)
+    sharded = sorted(n for n, p in state.model.named_parameters() if hasattr(p, "placements"))
+    got = par_step_result(state, make_train_step(state.model, cfg, state.optimizer, tp,
+                                                 shardings)(
+        state, cond, target, t_random=TRAIN_CHECK_T_RANDOM))
+    del state
+    state = par_sgd_state(cfg, dev)
+    one = par_step_result(state, make_train_step(state.model, cfg, state.optimizer)(
+        state, cond, target, t_random=TRAIN_CHECK_T_RANDOM))
+    del state
+    rel = abs(got["metrics"]["loss"] - one["metrics"]["loss"]) / abs(one["metrics"]["loss"])
+    moved = max(float((got["params"][n] - p).abs().max()) for n, p in one["params"].items())
+    print(f"15c: tensor parallel (data 1, model 1) over {dist.get_backend()} on {dev}, f32 SGD "
+          f"lr {TP_SGD_LR:g}, "
+          f"B {cfg.batch_size}: {len(sharded)} weights DTensors with the (1, 2) mesh's "
+          f"placements ({', '.join(sharded[:3])}, ...): loss relative {rel:.2e} (tolerance "
+          f"{TP_LOSS_RTOL:g}), params after the step max |difference| {moved:.2e} (tolerance "
+          f"{TP_PARAM_ATOL:g})")
+    check(bool(sharded) and rel <= TP_LOSS_RTOL and moved <= TP_PARAM_ATOL,
+          "tensor parallel (1, 1) disagrees with one process")
+
+
+def world_one_nccl(dev, work: str) -> dict:
+    """15a and 15c over a world-1 NCCL group on the card.  15a: data
+    parallel, three bf16 flagship steps through DDP and the global
+    BatchNorm, bitwise against the plain step under ``cudnn.deterministic``.
+    15c: ``tensor_parallel_world_one``.  Returns the rollout kernel's
+    launches over 15a and 15c, their plain steps included."""
+    import torch.distributed as dist
+
+    from spatiotemporal_variable_separation_tpu_torch.parallel import make_mesh
+    from spatiotemporal_variable_separation_tpu_torch.parallel.distributed import (
+        initialize_multihost,
+    )
+
+    reset_launch_counts()
+    initialize_multihost("file://" + os.path.join(work, "nccl_world1"), 1, 0, device=dev)
+    try:
+        mesh = make_mesh()
+        print(f"15a: process group {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+              f"{mesh.shape} on {mesh.entries}")
+        cfg = ExperimentConfig(**FLAGSHIP)
+        seq = par_seq(cfg).to(dev)
+        cond, target = seq[:, :cfg.nt_cond], seq[:, cfg.nt_cond:]
+        torch.backends.cudnn.deterministic = True
+        results = {}
+        for label, use in (("plain", None), ("ddp", mesh)):
+            state = create_train_state(cfg, steps_per_epoch=100, device=dev)
+            step = make_train_step(state.model, cfg, state.optimizer, use)
+            losses = [float(step(state, cond, target)["loss"]) for _ in range(3)]
+            results[label] = (losses, train_state_tensors(state))
+            del state, step
+        torch.backends.cudnn.deterministic = False
+        (l_plain, t_plain), (l_ddp, t_ddp) = results["plain"], results["ddp"]
+        differ = [k for k in t_plain if not torch.equal(t_plain[k], t_ddp[k])]
+        print(f"  3 bf16 flagship steps (B {cfg.batch_size}, cudnn.deterministic): losses plain "
+              f"{l_plain}, DDP + global BatchNorm {l_ddp}; {len(differ)} of {len(t_plain)} "
+              f"tensors (params, BatchNorm statistics, Adam state) differ")
+        check(l_plain == l_ddp and not differ,
+              "the world-1 NCCL step is not the plain step bitwise")
+        tensor_parallel_world_one(dev)
+    finally:
+        dist.destroy_process_group()
+    return dict(mlp_resnet_rollout.variant_launches)
+
+
+def two_processes_on_one_card(dev, work: str, bf16_ms: float) -> dict:
+    """15b: ``parallel_rank`` in two processes sharing the card over gloo,
+    held against one process on the card."""
+    from spatiotemporal_variable_separation_tpu_torch.parallel.distributed import launch
+
+    t = time.perf_counter()
+    launch(parallel_rank, (work, time.time()), [dev, dev], backend="gloo",
+           timeout=PAR_TIMEOUT_S)
+    print(f"15b: two ranks on {dev} over gloo ran in {time.perf_counter() - t:.1f} s "
+          "(spawn and start-up included)")
+    ranks = [torch.load(os.path.join(work, f"par_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}, seconds from the spawn to the end of each stage: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in res["seconds"].items()))
+    cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
+    seq = par_seq(cfg).to(dev)
+    cond, target = seq[:, :cfg.nt_cond], seq[:, cfg.nt_cond:]
+    one = {}
+    for label, dtype in (("dp", torch.float32), ("dp64", torch.float64)):
+        state = create_train_state(cfg, steps_per_epoch=100, device=dev)
+        if dtype == torch.float64:
+            as_f64(state.model)
+        one[label] = par_step_result(state, make_train_step(state.model, cfg, state.optimizer)(
+            state, cond.to(dtype), target.to(dtype), t_random=TRAIN_CHECK_T_RANDOM))
+        del state
+    _, f32_vs_f64 = layer_rel_err(one["dp"]["grads"], one["dp64"]["grads"])
+    print(f"  one process on the card, f32 against f64 gradients: worst {f32_vs_f64:.2e} of the "
+          "layer's max")
+    for r, res in enumerate(ranks):
+        for label in ("dp", "dp64"):
+            got, ref = res[label], one[label]
+            rel = abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) / abs(
+                ref["metrics"]["loss"])
+            g_at, g_err = layer_rel_err(got["grads"], ref["grads"])
+            s_at, s_err = layer_rel_err(got["stats"], ref["stats"])
+            print(f"  rank {r}, data parallel {'f32 (TF32 off)' if label == 'dp' else 'f64'}, "
+                  f"{res['dp']['rows']} of {cfg.batch_size} rows: loss "
+                  f"{got['metrics']['loss']:.6f} against one process "
+                  f"{ref['metrics']['loss']:.6f}, relative {rel:.2e} (tolerance "
+                  f"{PAR_LOSS_RTOL:g}); gradients worst {g_err:.2e} of the layer's max at {g_at}; "
+                  f"BatchNorm statistics worst {s_err:.2e} at {s_at} (tolerance "
+                  f"{PAR_STATS_TOL:g})")
+            check(rel <= PAR_LOSS_RTOL and s_err <= PAR_STATS_TOL,
+                  "two ranks on the card disagree with one process")
+            if label == "dp64":
+                check(g_err <= PAR_GRAD_TOL, "f64 gradients of two ranks against one process "
+                      f"(tolerance {PAR_GRAD_TOL:g})")
+        _, g32 = layer_rel_err(res["dp"]["grads"], one["dp64"]["grads"])
+        print(f"  rank {r}, f32 gradients against one process's f64: worst {g32:.2e} of the "
+              f"layer's max (tolerance {TRAIN_GRAD_TOL:g}, as one process's f32: "
+              f"{f32_vs_f64:.2e})")
+        check(g32 <= TRAIN_GRAD_TOL and f32_vs_f64 <= TRAIN_GRAD_TOL,
+              "f32 gradients against f64")
+    a, b = (res["dp"] for res in ranks)
+    check(a["metrics"] == b["metrics"], "the ranks log different losses")
+    check(all(torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"]),
+          "the ranks' averaged gradients differ")
+    check(all(torch.equal(a["stats"][n], b["stats"][n]) for n in a["stats"]),
+          "the ranks' BatchNorm statistics differ")
+    ms = ranks[0]["bf16_ms"]
+    print(f"  bf16 flagship, two processes sharing one card's SMs, B {FLAGSHIP['batch_size']} = "
+          f"2 x {FLAGSHIP['batch_size'] // 2}: {ms:.3f} ms/step, "
+          f"{FLAGSHIP['batch_size'] / ms * 1e3:.1f} samples/s ({PAR_BF16_WARMUP} warm-up, mean "
+          f"of {PAR_BF16_STEPS}); one process (phase 7): {bf16_ms:.3f} ms/step, "
+          f"{FLAGSHIP['batch_size'] / bf16_ms * 1e3:.1f} samples/s. A record of one card "
+          "shared, not a multi-GPU speed")
+    check(np.isfinite(ranks[0]["bf16_loss"]), "non-finite two-rank bf16 loss")
+    return {"bf16_ms": ms, "launches": {v: sum(res["launches"][v] for res in ranks)
+                                        for v in ranks[0]["launches"]}}
+
+
+def sharded_eval(dev, model, cfg, test_set) -> dict:
+    """15d: the Evaluator over the mesh (cuda:0, cuda:0) against one device,
+    on phase 9's f32 seed-0 model and test set at B 16 and a ragged batch."""
+    from spatiotemporal_variable_separation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[dev, dev])
+    ev1, ev2 = Evaluator(model), Evaluator(model, mesh=mesh)
+    n = cfg.nt_cond + 10
+    batches = {"B 16": eval_batch(test_set, 0), f"ragged B {PAR_EVAL_RAGGED}":
+               eval_batch(test_set, 1)[:PAR_EVAL_RAGGED]}
+    launches = 0
+    for label, items in batches.items():
+        cond = np.stack([c for c, _ in items])
+        shard = -(-cond.shape[0] // 2)
+        plan = card_plan(shard, *model.t_resnet.flat_params()[0].shape, 1)
+        reset_launch_counts()
+        fc2, _ = ev2.forecast(cond, n)
+        torch.cuda.synchronize()
+        got = dict(mlp_resnet_rollout.variant_launches)
+        fc1, _ = ev1.forecast(cond, n)
+        print(f"15d: Evaluator over {mesh.entries}, {label}: rollout kernel launches {got} "
+              f"(one a shard), each shard {shard} rows: {plan_text(plan)}")
+        check(got == {"cluster": 2, "stream": 0}, "one cluster launch a shard")
+        launches += got["cluster"]
+        check(fc2.shape == fc1.shape, "sharded forecast shape")
+        check_frames(fc2.cpu().numpy(), fc1.cpu().numpy(),
+                     f"  sharded forecast against one device, {label}")
+    items = eval_batch(test_set, 0)
+    cond, target = np.stack([c for c, _ in items]), np.stack([t for _, t in items])
+    rates = {}
+    for label, ev in (("one device", ev1), (f"mesh {mesh.entries}", ev2)):
+        ev.score(cond, target, nt_skip=cfg.nt_cond)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(EVAL_TIMING_BATCHES):
+            ev.score(cond, target, nt_skip=cfg.nt_cond)
+        torch.cuda.synchronize()
+        rates[label] = EVAL_TIMING_BATCHES * EVAL_B / (time.perf_counter() - t)
+    print("  Evaluator.score at B 16 (t10), sequences/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()))
+    return {"launches": launches}
+
+
+def sharded_serving(dev, model, cfg) -> dict:
+    """15e: ``Forecaster`` over the mesh (cuda:0, cuda:0), B 64 x 100,
+    against one device."""
+    from spatiotemporal_variable_separation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[dev, dev])
+    cond = np.random.default_rng(0).random((B, cfg.nt_cond) + cfg.frame_shape, dtype=np.float32)
+    one = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
+    two = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, mesh=mesh)
+    plan = card_plan(B // 2, *model.t_resnet.flat_params()[0].shape, 1)
+    reset_launch_counts()
+    answers = {b: two.predict(cond[:b]) for b in REQUESTS}
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    print(f"15e: Forecaster over {mesh.entries}, B {B} x {N_FORECAST}, requests of "
+          f"{list(answers)} windows: rollout kernel launches {launches} (two a request), each "
+          f"shard {B // 2} rows: {plan_text(plan)}")
+    check(launches == {"cluster": 2 * len(REQUESTS), "stream": 0}, "two launches a request")
+    for b, a in answers.items():
+        check_frames(a, one.predict(cond[:b]), f"  {b}-window answer over the mesh against one "
+                     "device")
+    for label, fc in (("one device", one), (f"mesh {mesh.entries}", two)):
+        stats = fc.benchmark(n_iters=15, warmup=3)
+        print(f"  {label}: p50 {stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms, "
+              f"{stats['frames_per_sec']:.1f} frames/s")
+    return {"launches": launches["cluster"]}
+
+
+def eval_cli_devices(dev, work: str) -> dict:
+    """15f: ``test_wave`` on one card: ``--devices 2`` raises JAX's
+    ``requested 2 devices, have 1``, ``--devices 1`` runs (an f32 seed-0
+    checkpoint of the wave recipe on a small ``gen_wave`` corpus)."""
+    data_dir, xp = os.path.join(work, "par_wave"), os.path.join(work, "par_wave_xp")
+    wave_eq.generate_dataset(data_dir, OPS_WAVE_SEQS, OPS_WAVE_SEQ_LEN, seed=WAVE_SEED,
+                             device=dev)
+    cfg = wave_config("wave", data_dir, precision="f32", xp_dir=xp)
+    os.makedirs(xp)
+    cfg.save(os.path.join(xp, "params.json"))
+    checkpoint.save_checkpoint(xp, create_train_state(cfg, 10, device=dev), name="final")
+    argv = ["--xp_dir", xp, "--data_dir", data_dir]
+    try:
+        cli_test_wave.main(argv + ["--devices", "2"])
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"15f: test_wave --devices 2 on {torch.cuda.device_count()} card: raised {raised!r}")
+    check(raised == f"requested 2 devices, have {torch.cuda.device_count()}",
+          "--devices 2 on one card")
+    reset_launch_counts()
+    means = cli_test_wave.main(argv + ["--devices", "1"])
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    print(f"  test_wave --devices 1: mse_t40 {means['mse_t40']:.6g}, rollout kernel launches "
+          f"{launches}")
+    check(np.isfinite(means["mse_t40"]) and launches["stream"] >= 1 and launches["cluster"] == 0,
+          "test_wave --devices 1")
+    return {"launches": launches["stream"]}
+
+
+def parallel_phase(dev, work: str, data_dir: str, model, cfg, bf16_ms: float) -> dict:
+    """Phase 15: data and tensor parallelism on one card.  ``model``/``cfg``:
+    phase 3's f32 seed-0 model; ``data_dir``: phase 9's test set.  Returns
+    the kernels' launches on the sharded paths and on the parallel training
+    paths (15a-c)."""
+    t_phase = t = time.perf_counter()
+
+    def sub(label):
+        nonlocal t
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+
+    train = world_one_nccl(dev, work)
+    sub("15a,c")
+    ranks = two_processes_on_one_card(dev, work, bf16_ms)["launches"]
+    train = {v: train[v] + ranks[v] for v in train}
+    print(f"15a-c: rollout kernel launches {train}: the parallel training paths run the "
+          "integrator module under autograd")
+    check(train == {"cluster": 0, "stream": 0}, "training launched the kernel")
+    sub("15b")
+    test_set = MovingMNIST.make_dataset(data_dir, 64, cfg.nt_cond, cfg.nt_cond + 10, 4, True,
+                                        cfg.n_object, train=False)
+    ev = sharded_eval(dev, model, cfg, test_set)
+    sub("15d")
+    serve = sharded_serving(dev, model, cfg)
+    sub("15e")
+    clis = eval_cli_devices(dev, work)
+    sub("15f")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return {"eval": ev["launches"], "serve": serve["launches"], "test_wave": clis["launches"],
+            "train": train}
+
+
+def phase15_only(dev=None) -> None:
+    """Phase 15 alone, a quicker run on the card than the whole script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase15_only()"
+
+    It writes phase 9's synthetic test digits and test set, builds phase 3's
+    f32 seed-0 model, and times phase 7's bf16 step for 15b's comparison."""
+    dev = torch.device("cuda:0") if dev is None else dev
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {nvidia_smi()}")
+    _build.build()
+    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+    bf16 = ExperimentConfig(**FLAGSHIP)
+    state = create_train_state(bf16, steps_per_epoch=100, device=dev)
+    seq = par_seq(bf16).to(dev)
+    bf16_ms = time_train_steps(state, make_train_step(state.model, bf16, state.optimizer),
+                               seq[:, :bf16.nt_cond], seq[:, bf16.nt_cond:])
+    del state
+    with tempfile.TemporaryDirectory() as work:
+        data_dir = os.path.join(work, "data")
+        os.makedirs(data_dir)
+        write_idx_images(os.path.join(data_dir, "t10k-images-idx3-ubyte"),
+                         synthetic_digits(N_TEST_DIGITS, seed=1))
+        write_idx_labels(os.path.join(data_dir, "t10k-labels-idx1-ubyte"),
+                         (np.arange(N_TEST_DIGITS) % 10).astype(np.uint8))
+        make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
+        print(json.dumps(parallel_phase(dev, work, data_dir, model, cfg, bf16_ms)))
+
 def check_kernel_cases(cases: dict) -> dict:
     """Phase 3: each case through the kernel its plan names (the serving,
     chairs and ragged-slice cases also through the streaming kernel,
@@ -3236,9 +3712,14 @@ def main() -> None:
     dev = torch.device("cuda:0")
     t_phase = time.perf_counter()
 
-    def phase_done(label) -> None:
+    seconds = {}
+
+    def phase_done(label, quiet: bool = False) -> None:
+        """Record (and print, unless the phase printed it) its seconds."""
         nonlocal t_phase
-        print(f"phase {label}: {time.perf_counter() - t_phase:.1f} s")
+        seconds[label] = round(time.perf_counter() - t_phase, 1)
+        if not quiet:
+            print(f"phase {label}: {seconds[label]:.1f} s")
         t_phase = time.perf_counter()
 
     smi = nvidia_smi()
@@ -3460,6 +3941,7 @@ def main() -> None:
     # -- 10. WaveEq and WaveEq-100 ---------------------------------------------
     with tempfile.TemporaryDirectory() as work:
         wave = wave_phase(dev, work, flops_peak, bw_peak)
+    phase_done(10, quiet=True)
     wave_keys = {"wave_shapes": wave["shapes"], "wave_plan": wave["plan"]._asdict(),
                  "wave_ms": wave["ms"]["stream"], "wave_plain_ms": wave["ms"]["plain"],
                  "wave_addmm_loop_ms": wave["ms"]["addmm"], "wave_bound_ms": wave["bound_ms"],
@@ -3469,12 +3951,14 @@ def main() -> None:
     # -- 11. 3D Chairs (11a ran with phase 3's cases) ---------------------------
     with tempfile.TemporaryDirectory() as work:
         chairs = chairs_phase(dev, work, flops_peak, bw_peak)
+    phase_done(11, quiet=True)
     chairs_labels = [label for label in cases if label.startswith("chairs")]
 
     # -- 12. TaxiBJ and 13. SST (each prints its own seconds) -------------------
     with tempfile.TemporaryDirectory() as work:
         taxibj = taxibj_phase(dev, work, flops_peak, bw_peak)
         sst = sst_phase(dev, work)
+    phase_done("12-13", quiet=True)
     taxibj_keys = {"taxibj_shapes": taxibj["shapes"], "taxibj_plan": taxibj["plan"]._asdict(),
                    "taxibj_ms": taxibj["ms"]["cluster"], "taxibj_stream_ms": taxibj["ms"]["stream"],
                    "taxibj_plain_ms": taxibj["ms"]["plain"],
@@ -3486,7 +3970,15 @@ def main() -> None:
     # sub-phase prints its own seconds) ------------------------------------------
     with tempfile.TemporaryDirectory() as work:
         ops = ops_phase(dev, work, data_dir, xp)
+    phase_done(14, quiet=True)
+
+    # -- 15. data and tensor parallelism on one card (phase 3's model, phase
+    # 9's test set; each part prints its own seconds) ----------------------------
+    with tempfile.TemporaryDirectory() as work:
+        par = parallel_phase(dev, work, data_dir, model, cfg, bf16_ms)
+    phase_done(15, quiet=True)
     work89.cleanup()
+    print("phase seconds: " + ", ".join(f"{k} {v}" for k, v in seconds.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
 
     def chairs_keys(v: str) -> dict:
@@ -3572,6 +4064,15 @@ def main() -> None:
             "--no_s training (14a)": ops["no_s_train"][v],
             "supervised training, its stop and resume, counted in the children (14d)":
                 ops["supervised"][v]},
+        "launches_parallel": {
+            f"Evaluator over (cuda:0, cuda:0), B 16 and a ragged B {PAR_EVAL_RAGGED} (15d)":
+                par["eval"] if v == "cluster" else 0,
+            f"Forecaster over (cuda:0, cuda:0), B {B} x {N_FORECAST}, {len(REQUESTS)} "
+            "requests (15e)": par["serve"] if v == "cluster" else 0,
+            "test_wave --devices 1, the f32 seed-0 wave recipe (15f)":
+                par["test_wave"] if v == "stream" else 0,
+            "data and tensor parallel training, world-1 NCCL and two ranks over gloo "
+            "(15a-c)": par["train"][v]},
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

@@ -17,7 +17,12 @@ suffixes), ``final``, or the step.  A save is staged in
 ``.tmp.<name>.<pid>`` and swapped in by two renames, the old one retired to
 ``.old.<name>.<pid>`` meanwhile; ``_repair_leftovers`` adopts or removes
 what a kill between the renames leaves.  The files are read back with
-``torch.load(weights_only=True)``: tensors, numbers and containers only."""
+``torch.load(weights_only=True)``: tensors, numbers and containers only.
+
+In a process group every rank calls ``save_checkpoint`` (tensor-parallel
+shards are gathered to full tensors, a collective, so a checkpoint is the
+same file whatever mesh wrote it), rank 0 alone writes, and the others wait
+at a barrier; every rank restores the full tensors."""
 
 from __future__ import annotations
 
@@ -33,6 +38,11 @@ import torch
 from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
 from spatiotemporal_variable_separation_tpu_torch.core.device import resolve_device
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
+from spatiotemporal_variable_separation_tpu_torch.parallel.distributed import (
+    group_barrier,
+    group_rank,
+)
+from spatiotemporal_variable_separation_tpu_torch.parallel.tensor import full_state_dicts
 from spatiotemporal_variable_separation_tpu_torch.train.state import TrainState
 
 _META = "_varsep_meta.json"
@@ -102,23 +112,25 @@ def save_checkpoint(xp_dir: str, state: TrainState, name: Optional[str] = None) 
     name = name if name is not None else str(state.step)
     base = _ckpt_dir(xp_dir)
     path = os.path.join(base, name)
-    staging = os.path.join(base, f".tmp.{name}.{os.getpid()}")
-    retired = os.path.join(base, f".old.{name}.{os.getpid()}")
-    _repair_leftovers(base)
-    for leftover in (staging, retired):
-        if os.path.isdir(leftover):
-            shutil.rmtree(leftover)
-    os.makedirs(staging)
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": int(state.step)}, os.path.join(staging, _STATE))
-    _write_meta(staging, state.step)
-    # Commit: retire the old dir, move the staging dir in, drop the retiree.
-    if os.path.isdir(path):
-        os.rename(path, retired)
-    os.rename(staging, path)
-    if os.path.isdir(retired):
-        shutil.rmtree(retired)
+    model_sd, opt_sd = full_state_dicts(state)
+    if group_rank() == 0:
+        staging = os.path.join(base, f".tmp.{name}.{os.getpid()}")
+        retired = os.path.join(base, f".old.{name}.{os.getpid()}")
+        _repair_leftovers(base)
+        for leftover in (staging, retired):
+            if os.path.isdir(leftover):
+                shutil.rmtree(leftover)
+        os.makedirs(staging)
+        torch.save({"model": model_sd, "optimizer": opt_sd, "step": int(state.step)},
+                   os.path.join(staging, _STATE))
+        _write_meta(staging, state.step)
+        # Commit: retire the old dir, move the staging dir in, drop the retiree.
+        if os.path.isdir(path):
+            os.rename(path, retired)
+        os.rename(staging, path)
+        if os.path.isdir(retired):
+            shutil.rmtree(retired)
+    group_barrier()
     return path
 
 
@@ -171,7 +183,8 @@ def restore_checkpoint(xp_dir: str, state: TrainState,
     The file is read onto the CPU and ``load_state_dict`` moves each tensor
     to its parameter's device.  Adam keeps its ``step`` counts where they
     are loaded: on the CPU, as in a fresh optimizer.  Loaded onto the card,
-    every Adam step would read them back to the host."""
+    every Adam step would read them back to the host.  Restore before
+    ``parallel.shard_state``: the file holds full tensors."""
     saved = _load(xp_dir, _pick(xp_dir, name), torch.device("cpu"))
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])

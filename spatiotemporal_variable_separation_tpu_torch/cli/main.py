@@ -4,7 +4,14 @@
 
 The port's counterpart of the JAX package's ``cli/main.py`` (reference
 ``python -m var_sep.main``, ``var_sep/main.py:49-162``), on the card unless
-``--platform cpu`` asks for the CPU."""
+``--platform cpu`` asks for the CPU.  ``--num_devices N`` trains on N ranks
+that it starts itself (``parallel.distributed.launch``: the cards
+``cuda:0..N-1``, or N CPU ranks under ``--platform cpu``); under
+``torchrun`` each rank joins torchrun's group instead::
+
+    torchrun --nproc_per_node 2 -m spatiotemporal_variable_separation_tpu_torch.cli.main \
+        --num_devices 2 ...
+"""
 
 from __future__ import annotations
 
@@ -16,15 +23,40 @@ import os
 LONG_HORIZON = 24
 
 
+def _train_rank(cfg, kwargs: dict) -> None:
+    """One rank of a ``--num_devices N`` run (``launch`` has joined it)."""
+    from spatiotemporal_variable_separation_tpu_torch.train.loop import run_training
+
+    run_training(cfg, **kwargs)
+
+
+def rank_devices(n: int, device) -> list:
+    """The devices of ``n`` ranks: ``n`` CPU ranks for ``device="cpu"``, else
+    the cards ``cuda:0..n-1`` (more than the machine has raises JAX's
+    ``requested N devices, have M``)."""
+    import torch
+
+    from spatiotemporal_variable_separation_tpu_torch.core.device import resolve_device
+
+    if device is not None and torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * n
+    resolve_device(device, "cli.main")
+    have = torch.cuda.device_count()
+    if n > have:
+        raise ValueError(f"requested {n} devices, have {have}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def main(argv=None):
     """Parse the flags, write ``params.json`` and train; returns the final
-    ``TrainState``."""
+    ``TrainState`` (None where ranks in other processes trained)."""
     from spatiotemporal_variable_separation_tpu_torch.cli.options import (
         add_platform_arg,
         build_parser,
         config_from_args,
         device_from_args,
     )
+    from spatiotemporal_variable_separation_tpu_torch.parallel import distributed
     from spatiotemporal_variable_separation_tpu_torch.train.loop import run_training
 
     parser = build_parser()
@@ -62,8 +94,22 @@ def main(argv=None):
     params_path = os.path.join(cfg.xp_dir, "params.json")
     if not (resume and os.path.isfile(params_path)):
         cfg.save(params_path)
-    return run_training(cfg, device=device, resume=resume, log_every=log_every,
-                        profile=profile, monitor_stability=monitor_stability)
+    kwargs = dict(resume=resume, log_every=log_every, profile=profile,
+                  monitor_stability=monitor_stability)
+    if distributed.under_torchrun():
+        distributed.initialize_multihost(device=device)
+        try:
+            run_training(cfg, **kwargs)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+        return None
+    n = cfg.num_devices or 1
+    if n > 1:
+        distributed.launch(_train_rank, (cfg, kwargs), rank_devices(n, device))
+        return None
+    return run_training(cfg, device=device, **kwargs)
 
 
 if __name__ == "__main__":

@@ -5,13 +5,14 @@ package's additions), so every README recipe parses to the same config.
 Torch-only reference flags keep their meaning or map: ``--torch_amp`` and
 ``--apex_amp`` map to ``--precision bf16``, as in the JAX package;
 ``--device N`` picks the card ``cuda:N``; ``--num_workers`` sets the host
-pipeline's threads.  The port trains on one device: ``--num_devices`` or
-``--model_parallel`` above 1 raise.
+pipeline's threads.  ``--num_devices N`` trains data-parallel on N ranks
+(one process a device, ``parallel/``), ``--model_parallel M`` shards the
+kernels over M of them.
 
 The eval and serving CLIs share the helpers at the bottom (``--platform``,
 ``--devices``, ``--max_batches``, ``--bn_reestimate``, ``--resume``,
-``--save_arrays``/``--archive_cap``), as in the JAX package; ``--devices``
-above 1 raises."""
+``--save_arrays``/``--archive_cap``), as in the JAX package; ``--devices N``
+shards each batch over a mesh of N entries (``mesh_from_args``)."""
 
 from __future__ import annotations
 
@@ -50,11 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     distr_p.add_argument("--device", type=int, metavar="DEVICE", default=None,
                          help="Train on card cuda:DEVICE (default: cuda, the current card).")
     distr_p.add_argument("--num_devices", type=int, metavar="N", default=None,
-                         help="Number of devices; the port trains on one so far "
-                              "(more raises).")
+                         help="Train data-parallel on N devices, one rank each: the "
+                              "cards cuda:0..N-1 (more than the machine has raises), "
+                              "or N CPU ranks under --platform cpu; under torchrun, "
+                              "the group's size. Default: one device.")
     distr_p.add_argument("--model_parallel", type=int, metavar="MP", default=1,
-                         help="Tensor-parallel size; the port trains on one device "
-                              "so far (more than 1 raises).")
+                         help="Tensor-parallel size: shard the kernels over MP of the "
+                              "--num_devices ranks (the (data, model) mesh's model axis).")
     distr_p.add_argument("--num_workers", type=int, metavar="NB", default=4,
                          help="Host data-pipeline worker threads.")
 
@@ -160,9 +163,7 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     """The config of a parsed command line: ``--torch_amp``/``--apex_amp``
     map to bf16 (an explicit ``--precision f32`` wins, with a warning), and
-    bf16 is the default.  More than one device raises."""
-    from spatiotemporal_variable_separation_tpu_torch.train.loop import refuse_parallel
-
+    bf16 is the default."""
     d = vars(args).copy()
     torch_amp = d.pop("torch_amp", False)
     apex_amp = d.pop("apex_amp", False)
@@ -171,9 +172,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         warnings.warn("--torch_amp/--apex_amp map to bf16 compute but "
                       "--precision f32 was given explicitly; training in f32.")
     d["precision"] = "bf16" if precision is None else precision
-    cfg = ExperimentConfig.from_dict(d)
-    refuse_parallel(cfg)
-    return cfg
+    return ExperimentConfig.from_dict(d)
 
 
 def add_platform_arg(parser) -> None:
@@ -184,10 +183,12 @@ def add_platform_arg(parser) -> None:
 
 
 def add_devices_arg(parser) -> None:
-    """The eval and serving CLIs' --devices flag; more than one raises."""
+    """The eval and serving CLIs' --devices flag (``mesh_from_args``)."""
     parser.add_argument("--devices", type=int, metavar="N", default=None,
-                        help="Devices to shard the eval rollout over; the port "
-                             "evaluates on one so far (more raises).")
+                        help="Shard each batch over a mesh of N devices, one model "
+                             "replica each: the cards cuda:0..N-1 (more than the "
+                             "machine has raises), or N CPU entries under --platform "
+                             "cpu. Default: one device, no mesh.")
 
 
 def add_max_batches_arg(parser) -> None:
@@ -234,14 +235,25 @@ def add_archive_args(parser, default_save: int = 1) -> None:
 
 def device_from_args(args) -> str | None:
     """The device the flags ask for: ``cpu`` under ``--platform cpu``,
-    ``cuda:N`` under ``--device N``, else None (the card, or raise).
-    ``--devices`` above 1 raises: the port runs on one device."""
-    if (getattr(args, "devices", None) or 1) > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: the port evaluates and serves on one device; "
-            "more come with ROADMAP.md Queue 1, slice 9 (parallelism)")
+    ``cuda:N`` under ``--device N``, else None (the card, or raise)."""
     if getattr(args, "platform", None) == "cpu":
         return "cpu"
     if getattr(args, "device", None) is not None:
         return f"cuda:{args.device}"
     return None
+
+
+def mesh_from_args(args):
+    """The one-process mesh that ``--devices N`` asks for (None without the
+    flag; JAX ``cli/options.py:245-254``): N CPU entries under ``--platform
+    cpu``, as the JAX package's CPU runs see 8 virtual devices, else the
+    first N cards (more than the machine has raises JAX's ``requested N
+    devices, have M``)."""
+    n = getattr(args, "devices", None)
+    if not n:
+        return None
+    from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import make_mesh
+
+    if getattr(args, "platform", None) == "cpu":
+        return make_mesh(n, devices=["cpu"] * n)
+    return make_mesh(n)

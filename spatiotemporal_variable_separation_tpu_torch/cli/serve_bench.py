@@ -17,6 +17,7 @@ def main(argv=None):
         add_devices_arg,
         add_platform_arg,
         device_from_args,
+        mesh_from_args,
     )
 
     p = argparse.ArgumentParser(prog="varsep serving benchmark (PyTorch)")
@@ -32,12 +33,13 @@ def main(argv=None):
     add_devices_arg(p)
     add_platform_arg(p)
     args = p.parse_args(argv)
-    device = device_from_args(args)
+    device, mesh = device_from_args(args), mesh_from_args(args)
 
     from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
 
     fc = Forecaster.from_xp_dir(args.xp_dir, args.batch_size, args.n_forecast,
-                                epoch=args.epoch, precision=args.precision, device=device)
+                                epoch=args.epoch, mesh=mesh, precision=args.precision,
+                                device=device)
     stats = fc.benchmark(n_iters=args.iters)
     print(json.dumps(stats))
     return stats

@@ -21,6 +21,7 @@ def main(argv=None):
         add_max_batches_arg,
         add_platform_arg,
         device_from_args,
+        mesh_from_args,
     )
 
     p = argparse.ArgumentParser(prog="varsep Chairs content-swap testing (PyTorch)")
@@ -36,14 +37,14 @@ def main(argv=None):
     add_max_batches_arg(p)
     add_eval_resume_arg(p)
     args = p.parse_args(argv)
-    device = device_from_args(args)
+    device, mesh = device_from_args(args), mesh_from_args(args)
 
     from spatiotemporal_variable_separation_tpu_torch.eval.chairs_swap import evaluate
     from spatiotemporal_variable_separation_tpu_torch.eval.common import write_eval_json
 
     means = evaluate(args.xp_dir, args.data_dir, args.nt_pred, args.batch_size,
                      args.test_seed, args.epoch, bn_reestimate=args.bn_reestimate,
-                     max_batches=args.max_batches, resume=args.resume, device=device)
+                     max_batches=args.max_batches, resume=args.resume, mesh=mesh, device=device)
     print("Results:")
     for k, v in means.items():
         print(k, v)

@@ -41,15 +41,18 @@ def eval_parser(prog: str) -> argparse.ArgumentParser:
 def run(evaluate, protocol: str, prog: str, argv=None) -> dict:
     """Parse, score with ``evaluate``, print the means and record them in
     ``<xp_dir>/evals.json`` under ``<protocol>_t<nt_pred>``."""
-    from spatiotemporal_variable_separation_tpu_torch.cli.options import device_from_args
+    from spatiotemporal_variable_separation_tpu_torch.cli.options import (
+        device_from_args,
+        mesh_from_args,
+    )
     from spatiotemporal_variable_separation_tpu_torch.eval.common import write_eval_json
 
     args = eval_parser(prog).parse_args(argv)
-    device = device_from_args(args)
+    device, mesh = device_from_args(args), mesh_from_args(args)
     means = evaluate(args.xp_dir, args.data_dir, args.nt_pred, args.batch_size,
                      args.test_seed, args.epoch, bn_reestimate=args.bn_reestimate,
                      max_batches=args.max_batches, save_arrays=bool(args.save_arrays),
-                     resume=args.resume, archive_cap=args.archive_cap, device=device)
+                     resume=args.resume, archive_cap=args.archive_cap, mesh=mesh, device=device)
     print("Results:")
     for k, v in means.items():
         print(k, v)

@@ -18,6 +18,7 @@ def main(argv=None):
         add_max_batches_arg,
         add_platform_arg,
         device_from_args,
+        mesh_from_args,
     )
 
     p = argparse.ArgumentParser(prog="varsep SST testing (PyTorch)")
@@ -37,7 +38,7 @@ def main(argv=None):
     add_bn_reestimate_arg(p)
     add_max_batches_arg(p)
     args = p.parse_args(argv)
-    device = device_from_args(args)
+    device, mesh = device_from_args(args), mesh_from_args(args)
 
     from spatiotemporal_variable_separation_tpu_torch.eval.common import write_eval_json
     from spatiotemporal_variable_separation_tpu_torch.eval.sst import evaluate
@@ -46,7 +47,7 @@ def main(argv=None):
                      zones=args.zones, max_batches=args.max_batches,
                      reference_broadcast=args.reference_broadcast,
                      bn_reestimate=args.bn_reestimate, save_arrays=args.save_arrays,
-                     device=device)
+                     mesh=mesh, device=device)
     print(f"MSE at t+10: {means['mse_t10']}")
     print(f"MSE at t+6: {means['mse_t6']}")
     print(f"SSIM at t+10: {means['ssim_t10']}")

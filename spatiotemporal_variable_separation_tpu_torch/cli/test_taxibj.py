@@ -17,6 +17,7 @@ def main(argv=None):
         add_max_batches_arg,
         add_platform_arg,
         device_from_args,
+        mesh_from_args,
     )
 
     p = argparse.ArgumentParser(prog="varsep TaxiBJ testing (PyTorch)")
@@ -32,14 +33,14 @@ def main(argv=None):
     add_bn_reestimate_arg(p)
     add_max_batches_arg(p)
     args = p.parse_args(argv)
-    device = device_from_args(args)
+    device, mesh = device_from_args(args), mesh_from_args(args)
 
     from spatiotemporal_variable_separation_tpu_torch.eval.common import write_eval_json
     from spatiotemporal_variable_separation_tpu_torch.eval.taxibj import evaluate
 
     means = evaluate(args.xp_dir, args.data_dir, args.batch_size, args.epoch,
                      max_batches=args.max_batches, bn_reestimate=args.bn_reestimate,
-                     save_arrays=args.save_arrays, device=device)
+                     save_arrays=args.save_arrays, mesh=mesh, device=device)
     print(f"MSE at t+4: {means['mse_t4']}")
     extra = {"max_batches": args.max_batches} if args.max_batches is not None else {}
     write_eval_json(args.xp_dir, "taxibj", means, epoch=args.epoch,

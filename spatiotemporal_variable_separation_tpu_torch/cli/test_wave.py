@@ -16,6 +16,7 @@ def main(argv=None):
         add_max_batches_arg,
         add_platform_arg,
         device_from_args,
+        mesh_from_args,
     )
 
     p = argparse.ArgumentParser(prog="varsep WaveEq testing (PyTorch)")
@@ -30,14 +31,14 @@ def main(argv=None):
     add_platform_arg(p)
     add_max_batches_arg(p)
     args = p.parse_args(argv)
-    device = device_from_args(args)
+    device, mesh = device_from_args(args), mesh_from_args(args)
 
     from spatiotemporal_variable_separation_tpu_torch.eval.common import write_eval_json
     from spatiotemporal_variable_separation_tpu_torch.eval.wave import evaluate
 
     means = evaluate(args.xp_dir, args.data_dir, args.batch_size, args.epoch,
                      max_batches=args.max_batches, save_arrays=args.save_arrays,
-                     device=device)
+                     mesh=mesh, device=device)
     print(f"MSE at t+40: {means['mse_t40']}")
     extra = {"max_batches": args.max_batches} if args.max_batches is not None else {}
     write_eval_json(args.xp_dir, "wave", means, epoch=args.epoch, **extra)

@@ -39,3 +39,9 @@ def activation(name: Optional[str]) -> Activation:
         return _REGISTRY[name]
     except KeyError:
         raise ValueError(f"Activation function `{name}` not implemented") from None
+
+
+def register_activation(name: str, fn: Activation) -> None:
+    """Extension hook: register a custom activation under ``name`` (JAX
+    ``core/activations.py:45``)."""
+    _REGISTRY[name] = fn

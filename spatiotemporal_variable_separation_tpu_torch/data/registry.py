@@ -48,14 +48,18 @@ def make_train_dataset(cfg: ExperimentConfig):
                          cfg.n_wave_points)
 
 
-def make_device_generator(cfg: ExperimentConfig, device=None):
+def make_device_generator(cfg: ExperimentConfig, mesh=None, device=None):
     """The on-device batch generator on ``device`` (``DeviceMovingMNIST``, or
     ``DeviceWaveEq``, ``DeviceChairs``, ``DeviceItems`` or
     ``DeviceZoneWindows`` over the train split), or None under
     ``--no-device_datagen`` or when the data files are missing (the host
-    dataset then raises the missing-file error)."""
+    dataset then raises the missing-file error).  With a ``mesh`` (JAX's
+    signature), on this rank's device: each rank holds the corpus and makes
+    the global batch, of which it trains on its rows (``train/step.py``)."""
     if not cfg.device_datagen:
         return None
+    if mesh is not None:
+        device = mesh.local_device
     if cfg.data == "mnist":
         from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
             DeviceMovingMNIST,
@@ -102,14 +106,24 @@ def steps_per_epoch(cfg: ExperimentConfig, dataset) -> int:
     return max(1, len(dataset) // cfg.batch_size)
 
 
-def epoch_iterator(cfg: ExperimentConfig, dataset, epoch: int) -> Iterator:
+def epoch_iterator(cfg: ExperimentConfig, dataset, epoch: int, mesh=None) -> Iterator:
     """Yield (cond, target) numpy batches for one epoch: exactly
     ``steps_per_epoch(cfg, dataset)`` of them, so an explicit
     ``--steps_per_epoch``, the LR schedule and resume accounting agree.
 
     Datasets with a vectorized ``generate_batch`` (Moving MNIST) use it on a
     background thread; map-style datasets (WaveEq, Chairs, TaxiBJ, SST) go
-    through the shuffled Batcher."""
+    through the shuffled Batcher.  With a ``mesh`` over a process group,
+    every rank draws the same global batches (one seed) and yields its data
+    rank's rows of each."""
+    if mesh is not None and mesh.in_group:
+        from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import DATA_AXIS
+
+        n_data, r = mesh.shape[DATA_AXIS], mesh.data_rank
+        per = cfg.batch_size // n_data
+        for cond, target in epoch_iterator(cfg, dataset, epoch):
+            yield cond[r * per:(r + 1) * per], target[r * per:(r + 1) * per]
+        return
     n_steps = steps_per_epoch(cfg, dataset)
     if hasattr(dataset, "generate_batch"):
         nt_cond = cfg.nt_cond

@@ -67,8 +67,9 @@ def evaluate(xp_dir: str, data_dir: str, nt_pred: int, batch_size: int = 16,
 
     ``model_bundle``: ``(model, cfg)`` to score in place of ``xp_dir``'s
     checkpoint, on the model's own device; ``device``: where a checkpoint is
-    loaded (None: the card, or raise).  ``mesh`` raises: the port evaluates
-    on one device."""
+    loaded (None: the card, or raise).  ``mesh``: a one-process mesh
+    (``parallel.make_mesh``) to shard each batch over, one replica an
+    entry (``Evaluator``)."""
     model, cfg = load_bundle(xp_dir, nt_pred, data_dir, epoch, model_bundle, device)
     ev = Evaluator(model, mesh=mesh)
     nt_cond = cfg.nt_cond

@@ -24,27 +24,82 @@ import torch
 
 from spatiotemporal_variable_separation_tpu_torch.ops.metrics import mse_per_frame, psnr_from_mse
 from spatiotemporal_variable_separation_tpu_torch.ops.ssim import ssim_per_frame
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import (
+    device_put,
+    replicated_sharding,
+    shard_batch,
+    tree_map,
+)
 
 _METRICS = ("mse", "psnr", "ssim")
 
 
 class Evaluator:
-    """Forecasts and scores with one model on one device.
+    """Forecasts and scores with one model on one device, or data-parallel
+    over the entries of a one-process ``mesh`` (``parallel.make_mesh``).
 
     The Evaluator keeps its own copy of the model, in eval mode, on the
     model's device: the caller's module is never put in another mode nor
     has its BatchNorm statistics changed (the JAX Evaluator updates its own
-    copy of ``variables``, ``common.py:154-172``).  Data-parallel evaluation
-    (``mesh``) is not ported yet and raises.
+    copy of ``variables``, ``common.py:154-172``).
+
+    With a mesh (JAX ``common.py:98-118``) it keeps one replica a mesh entry
+    (``replicas``; ``model`` is the first, on the first entry's device).
+    Each batch is padded to a mesh multiple by repeating its last row
+    (``_pad``), split on its leading axis, each shard run on its replica,
+    and the results gathered to the first device in shard order and sliced
+    back.  Eval-mode rows do not interact, so the forecast is the one-device
+    forecast row for row; an f32/``mixed`` MLP-ResNet launches the rollout
+    kernel once a shard a batch.
     """
 
     def __init__(self, model: torch.nn.Module, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel evaluation over a mesh comes with ROADMAP.md Queue 1, "
-                "slice 9 (parallelism); the port evaluates on one device")
+        if mesh is not None and mesh.in_group:
+            raise ValueError("Evaluator shards over the entries of a one-process mesh "
+                             "(make_mesh(devices=...)), not over a process group")
         self.model = copy.deepcopy(model).eval()
+        self.mesh = mesh
+        self.replicas = [self.model]
+        if mesh is not None:
+            self.replicas = device_put(self.model, replicated_sharding(mesh))
+            self.model = self.replicas[0]
         self.device = next(self.model.parameters()).device
+
+    def _pad(self, x):
+        """The batch (a tree) padded to a mesh multiple by repeating its last
+        row (JAX ``common.py:175-182``)."""
+        short = -_rows(x) % len(self.replicas)
+        if not short:
+            return x
+        return tree_map(lambda a: torch.cat([a, a[-1:].expand((short,) + a.shape[1:])]), x)
+
+    def _sharded(self, fn, *batches):
+        """``fn(replica, *shards)`` on every replica's shard of the batches
+        (trees whose leading axis is the batch), the results (trees of
+        batch-leading tensors, or None) gathered to the first device in
+        shard order and cut to the batch."""
+        if self.mesh is None:
+            return fn(self.model, *batches)
+        b = _rows(batches[0])
+        shards = shard_batch(self.mesh, tuple(self._pad(x) for x in batches))
+        outs = [fn(rep, *shard) for rep, shard in zip(self.replicas, shards)]
+
+        def gather(*parts):
+            if parts[0] is None:
+                return None
+            if isinstance(parts[0], (tuple, list)):
+                return type(parts[0])(gather(*p) for p in zip(*parts))
+            return torch.cat([p.to(self.device) for p in parts])[:b]
+
+        return gather(*outs)
+
+    def _get_forecast(self, cond: torch.Tensor, n_forecast: int, init_s_code: Any = None):
+        """``model.get_forecast`` over the mesh's shards (an S code given is
+        sharded with the batch)."""
+        if init_s_code is None:
+            return self._sharded(lambda m, c: m.get_forecast(c, n_forecast), cond)
+        return self._sharded(lambda m, c, s: m.get_forecast(c, n_forecast, init_s_code=s),
+                             cond, init_s_code)
 
     def _tensor(self, x) -> torch.Tensor:
         """A host array (or a tensor) as a tensor on the evaluator's device."""
@@ -69,18 +124,30 @@ class Evaluator:
         try:
             with torch.no_grad():
                 for cond in cond_batches:
-                    self.model.get_forecast(self._tensor(cond), n_forecast)
+                    cond = self._tensor(cond)
+                    if self.mesh is not None:
+                        # TRIM (not pad) to a mesh multiple, as JAX does
+                        # (common.py:156-168): _pad's repeated rows would
+                        # bias the statistics.  The trimmed batch runs
+                        # whole through one replica: its statistics are
+                        # those of the global batch.
+                        cond = cond[:cond.shape[0] - cond.shape[0] % len(self.replicas)]
+                        if not cond.shape[0]:
+                            continue
+                    self.model.get_forecast(cond, n_forecast)
                     n += 1
         finally:
             self.model.eval()
+        stats = {k: v for k, v in self.model.state_dict().items() if "running_" in k}
+        for rep in self.replicas[1:]:
+            rep.load_state_dict(stats, strict=False)
         return n
 
     @torch.inference_mode()
     def forecast(self, cond, n_forecast: int, init_s_code: Any = None):
         """``(forecasts (B, n, H, W, C), S)`` on the device; with
         ``init_s_code`` the S code is taken as given."""
-        fc, _, s, _ = self.model.get_forecast(self._tensor(cond), n_forecast,
-                                              init_s_code=init_s_code)
+        fc, _, s, _ = self._get_forecast(self._tensor(cond), n_forecast, init_s_code)
         return fc, s
 
     @torch.inference_mode()
@@ -91,7 +158,7 @@ class Evaluator:
         Returns ``(metrics, pred, s)``: host ``(B,)`` mse/psnr/ssim arrays,
         and the prediction window and S code, left on the device."""
         cond, gt = self._tensor(cond), self._tensor(gt)
-        fc, _, s, _ = self.model.get_forecast(cond, nt_skip + gt.shape[1])
+        fc, _, s, _ = self._get_forecast(cond, nt_skip + gt.shape[1])
         pred = fc[:, nt_skip:]
         return _fetch(per_sequence_metrics(pred, gt, max_val)), pred, s
 
@@ -110,8 +177,8 @@ class Evaluator:
         gt_swap = self._tensor(gt_swap)
         per_perm = gt_swap.dim() == test_cond.dim() + 1
         gt_len = gt_swap.shape[2] if per_perm else gt_swap.shape[1]
-        s = self.model.encode_s(content_cond)
-        fc = self.model.get_forecast(test_cond, nt_skip + gt_len, init_s_code=s)[0]
+        s = self._sharded(lambda m, c: m.encode_s(c), content_cond)
+        fc = self._get_forecast(test_cond, nt_skip + gt_len, s)[0]
         pred = fc[:, nt_skip:]
         if not per_perm:
             return _fetch(per_sequence_metrics(pred, gt_swap, max_val)), pred
@@ -125,6 +192,13 @@ class Evaluator:
         mets = {"mse": per["mse"].amin(dim=1), "psnr": per["psnr"].amax(dim=1),
                 "ssim": per["ssim"].amax(dim=1)}
         return _fetch(mets), pred
+
+
+def _rows(tree) -> int:
+    """The leading (batch) size of a tree's first tensor."""
+    while isinstance(tree, (tuple, list)):
+        tree = tree[0]
+    return tree.shape[0]
 
 
 def _fetch(mets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -71,8 +71,9 @@ def evaluate(xp_dir: str, data_dir: str, nt_pred: int, batch_size: int = 16,
     checkpoint is loaded (None: the card, or raise).  ``archive_cap``: archive
     only the first N sequences (0 = all, the reference's behaviour); metrics
     cover every sequence.  After a ``resume`` the archives cover only the
-    batches scored since the resume point.  ``mesh`` raises: the port
-    evaluates on one device."""
+    batches scored since the resume point.  ``mesh``: a one-process mesh
+    (``parallel.make_mesh``) to shard each batch over, one replica an entry
+    (``Evaluator``)."""
     model, cfg = load_bundle(xp_dir, nt_pred, data_dir, epoch, model_bundle, device)
     ev = Evaluator(model, mesh=mesh)
     nt_cond = cfg.nt_cond

@@ -69,8 +69,9 @@ def evaluate(xp_dir: str, data_dir: str, batch_size: int = 128,
     cfg)`` to score in place of ``xp_dir``'s checkpoint, on the model's own
     device; ``test_set``: a ``TaxiBJ`` test split in place of ``data_dir``'s
     (e.g. from ``TaxiBJ.from_arrays``); ``device``: where a checkpoint is
-    loaded (None: the card, or raise).  ``mesh`` raises: the port evaluates
-    on one device."""
+    loaded (None: the card, or raise).  ``mesh``: a one-process mesh
+    (``parallel.make_mesh``) to shard each batch over, one replica an
+    entry (``Evaluator``)."""
     model, cfg = load_bundle(xp_dir, NT_PRED, data_dir, epoch, model_bundle, device)
     if test_set is None:
         test_set = TaxiBJ.make_datasets(data_dir, len_closeness=cfg.nt_cond + NT_PRED,

@@ -87,7 +87,8 @@ def evaluate(xp_dir: str, data_dir: str, batch_size: int = 256,
     """``{"mse_t40": ...}`` of the test split.  ``model_bundle``: ``(model,
     cfg)`` to score in place of ``xp_dir``'s checkpoint, on the model's own
     device; ``device``: where a checkpoint is loaded (None: the card, or
-    raise).  ``mesh`` raises: the port evaluates on one device."""
+    raise).  ``mesh``: a one-process mesh (``parallel.make_mesh``) to shard
+    each batch over, one replica an entry (``Evaluator``)."""
     model, cfg = load_bundle(xp_dir, NT_PRED, data_dir, epoch, model_bundle, device)
     mse = frame_mses(xp_dir, data_dir, model, cfg, batch_size, max_batches, mesh, save_arrays)
     return {"mse_t40": float(mse.mean(axis=0)[:NT_PRED].mean())}

@@ -15,6 +15,7 @@ Parameters are f32 under every policy.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,6 +39,7 @@ from spatiotemporal_variable_separation_tpu_torch.models.mlp_encdec import MLPDe
 from spatiotemporal_variable_separation_tpu_torch.models.resnet18 import ResNet18
 from spatiotemporal_variable_separation_tpu_torch.models.separable import SeparableNetwork
 
+
 def compute_dtype(precision: str) -> torch.dtype:
     """The encoders' and decoder's compute type: f32 for ``f32``, else bf16."""
     return torch.float32 if precision == "f32" else torch.bfloat16
@@ -57,37 +59,66 @@ def integrator_dtype(precision: str) -> torch.dtype:
     return torch.float32 if precision in ("f32", "mixed") else torch.bfloat16
 
 
-def _encoder(cfg: ExperimentConfig, nh: int, **kw) -> torch.nn.Module:
-    """The encoder of ``cfg.architecture`` (JAX ``factory.py:64-82``)."""
-    in_c = cfg.nt_cond * cfg.channels
-    if cfg.architecture == "dcgan":
-        return DCGAN64Encoder(in_c, nh, cfg.enc_hidden_size, bn_dtype=bn_io_dtype(cfg), **kw)
-    if cfg.architecture == "vgg":
-        return VGG64Encoder(in_c, nh, cfg.enc_hidden_size, vgg32=cfg.image_size == 32,
-                            bn_dtype=bn_io_dtype(cfg), **kw)
-    if cfg.architecture == "resnet":
-        return ResNet18(in_c, nh, bn_dtype=bn_io_dtype(cfg), **kw)
-    if cfg.architecture == "encoderSST":
-        return EncoderSST(in_c, nh, bn_dtype=bn_io_dtype(cfg), **kw)
-    return MLPEncoder(cfg.nt_cond * math.prod(cfg.frame_shape), nh, cfg.enc_hidden_size,
-                      cfg.enc_n_layers, **kw)
+def get_encoder(nn_type: str, frame_shape: Tuple[int, ...], output_size: int,
+                hidden_size: int, n_layers: int, init_type: str, init_gain: float,
+                dtype: torch.dtype = torch.float32, bn_dtype: torch.dtype = torch.float32,
+                *, nt_cond: int, generator: torch.Generator) -> torch.nn.Module:
+    """The encoder ``nn_type`` of ``nt_cond`` frames of ``frame_shape`` to an
+    ``output_size`` code (JAX ``factory.py:64-82``, same arguments but
+    ``name``; flax infers the input width, torch takes it from
+    ``nt_cond``)."""
+    kw = dict(init_type=init_type, init_gain=init_gain, generator=generator, dtype=dtype)
+    in_c = nt_cond * frame_shape[-1]
+    if nn_type == "dcgan":
+        return DCGAN64Encoder(in_c, output_size, hidden_size, bn_dtype=bn_dtype, **kw)
+    if nn_type == "vgg":
+        return VGG64Encoder(in_c, output_size, hidden_size, vgg32=frame_shape[0] == 32,
+                            bn_dtype=bn_dtype, **kw)
+    if nn_type == "resnet":
+        return ResNet18(in_c, output_size, bn_dtype=bn_dtype, **kw)
+    if nn_type == "encoderSST":
+        return EncoderSST(in_c, output_size, bn_dtype=bn_dtype, **kw)
+    if nn_type == "mlp":
+        return MLPEncoder(nt_cond * math.prod(frame_shape), output_size, hidden_size,
+                          n_layers, **kw)
+    raise ValueError(f"unknown encoder architecture {nn_type!r}")
 
 
-def _decoder(cfg: ExperimentConfig, **kw) -> torch.nn.Module:
-    """The decoder of ``cfg.decoder_arch`` (JAX ``factory.py:85-108``)."""
-    nz = cfg.code_size_s + cfg.code_size_t if cfg.mixing == "concat" else cfg.code_size_t
-    common = dict(last_activation=cfg.last_activation, mixing=cfg.mixing, **kw)
-    if cfg.decoder_arch == "dcgan":
-        return DCGAN64Decoder(nz, cfg.channels, cfg.dec_hidden_size, skip=cfg.skipco,
-                              bn_dtype=bn_io_dtype(cfg), **common)
-    if cfg.decoder_arch == "vgg":
-        return VGG64Decoder(nz, cfg.channels, cfg.dec_hidden_size, skip=cfg.skipco,
-                            vgg32=cfg.image_size == 32, bn_dtype=bn_io_dtype(cfg), **common)
-    if cfg.decoder_arch == "decoderSST":  # concat-only (validated)
-        cls = DecoderSSTSkip if cfg.skipco else DecoderSST
-        return cls(nz, cfg.channels, last_activation=cfg.last_activation,
-                   bn_dtype=bn_io_dtype(cfg), **kw)
-    return MLPDecoder(nz, cfg.frame_shape, cfg.dec_hidden_size, cfg.dec_n_layers, **common)
+def get_decoder(nn_type: str, frame_shape: Tuple[int, ...], last_activation: Optional[str],
+                hidden_size: int, n_layers: int, mixing: str, skipco: bool,
+                init_type: str, init_gain: float, dtype: torch.dtype = torch.float32,
+                bn_dtype: torch.dtype = torch.float32, *, nz: int,
+                generator: torch.Generator) -> torch.nn.Module:
+    """The decoder ``nn_type`` of an ``nz``-wide code to frames of
+    ``frame_shape`` (JAX ``factory.py:85-108``, same arguments but ``name``;
+    torch takes the code width ``nz``)."""
+    kw = dict(init_type=init_type, init_gain=init_gain, generator=generator, dtype=dtype)
+    nc = frame_shape[-1]
+    common = dict(last_activation=last_activation, mixing=mixing, **kw)
+    if nn_type == "dcgan":
+        return DCGAN64Decoder(nz, nc, hidden_size, skip=skipco, bn_dtype=bn_dtype, **common)
+    if nn_type == "vgg":
+        return VGG64Decoder(nz, nc, hidden_size, skip=skipco, vgg32=frame_shape[0] == 32,
+                            bn_dtype=bn_dtype, **common)
+    if nn_type == "decoderSST":  # concat-only (validated)
+        cls = DecoderSSTSkip if skipco else DecoderSST
+        return cls(nz, nc, last_activation=last_activation, bn_dtype=bn_dtype, **kw)
+    if nn_type == "mlp":
+        return MLPDecoder(nz, tuple(frame_shape), hidden_size, n_layers, **common)
+    raise ValueError(f"unknown decoder architecture {nn_type!r}")
+
+
+def get_integrator(n_blocks: int, hidden_size: int, init_type: str, gain: float,
+                   fully_conv: bool, dtype: torch.dtype = torch.float32,
+                   bn_dtype: torch.dtype = torch.float32, *, code_size: int,
+                   generator: torch.Generator) -> torch.nn.Module:
+    """The temporal integrator (JAX ``factory.py:111-118``, same arguments
+    but ``name``; torch takes the T code's width ``code_size``):
+    ``ConvResnet`` iff ``fully_conv``, else ``MLPResnet``."""
+    kw = dict(init_type=init_type, init_gain=gain, generator=generator, dtype=dtype)
+    if fully_conv:
+        return ConvResnet(code_size, n_blocks, hidden_size, bn_dtype=bn_dtype, **kw)
+    return MLPResnet(code_size, n_blocks, hidden_size, **kw)
 
 
 def build_separable_network(cfg: ExperimentConfig, device: torch.device,
@@ -103,22 +134,24 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
         # where the decoder expects (code, skips).
         raise ConfigError("--skipco with the resnet encoder: ResNet18 returns no skip maps "
                           "(JAX models/resnet18.py:8-10, reference conv.py:546-564)")
-    g = generator
-    kw = dict(init_type=cfg.init_encoder, init_gain=cfg.gain_encoder, generator=g,
-              dtype=compute_dtype(cfg.precision))
+    dtype, bn_dt, shape = compute_dtype(cfg.precision), bn_io_dtype(cfg), cfg.frame_shape
+    enc = dict(dtype=dtype, bn_dtype=bn_dt, nt_cond=cfg.nt_cond, generator=generator)
     if cfg.no_s:  # draws nothing from the generator, as it has no weights
-        es = ConstantS(cfg.code_size_t, dtype=kw["dtype"])
+        es = ConstantS(cfg.code_size_t, dtype=dtype)
     else:
-        es = _encoder(cfg, cfg.code_size_s, **kw)
-    et = _encoder(cfg, cfg.code_size_t, **kw)
-    decoder = _decoder(cfg, **kw)
-    int_kw = dict(init_type=cfg.init_resnet, init_gain=cfg.gain_resnet, generator=g,
-                  dtype=integrator_dtype(cfg.precision))
-    if cfg.fully_conv_integrator:  # JAX factory.py:111-118
-        t_resnet = ConvResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size,
-                              bn_dtype=bn_io_dtype(cfg), **int_kw)
-    else:
-        t_resnet = MLPResnet(cfg.code_size_t, cfg.n_blocks, cfg.res_hidden_size, **int_kw)
+        es = get_encoder(cfg.architecture, shape, cfg.code_size_s, cfg.enc_hidden_size,
+                         cfg.enc_n_layers, cfg.init_encoder, cfg.gain_encoder, **enc)
+    et = get_encoder(cfg.architecture, shape, cfg.code_size_t, cfg.enc_hidden_size,
+                     cfg.enc_n_layers, cfg.init_encoder, cfg.gain_encoder, **enc)
+    nz = cfg.code_size_s + cfg.code_size_t if cfg.mixing == "concat" else cfg.code_size_t
+    decoder = get_decoder(cfg.decoder_arch, shape, cfg.last_activation, cfg.dec_hidden_size,
+                          cfg.dec_n_layers, cfg.mixing, cfg.skipco, cfg.init_encoder,
+                          cfg.gain_encoder, dtype=dtype, bn_dtype=bn_dt, nz=nz,
+                          generator=generator)
+    t_resnet = get_integrator(cfg.n_blocks, cfg.res_hidden_size, cfg.init_resnet,
+                              cfg.gain_resnet, cfg.fully_conv_integrator,
+                              dtype=integrator_dtype(cfg.precision), bn_dtype=bn_dt,
+                              code_size=cfg.code_size_t, generator=generator)
     model = SeparableNetwork(Es=es, Et=et, t_resnet=t_resnet, decoder=decoder,
                              nt_cond=cfg.nt_cond, skipco=cfg.skipco,
                              decode_mode=cfg.decode_mode, remat=cfg.remat,

@@ -6,7 +6,8 @@ Torch counterparts of the JAX package's ``models/layers.py`` (reference
 * ``ConvBlock`` = Conv2d/ConvTranspose2d -> optional BatchNorm -> activation,
 * ``LinBlock``  = pre-activation Linear,
 * ``MLP``       = stack of LinBlocks (first layer without activation),
-* ``BatchNorm`` = BatchNorm2d with flax's train-mode arithmetic,
+* ``BatchNorm`` = BatchNorm2d with flax's train-mode arithmetic, over the
+  global batch of a data-parallel group where one is set,
 * ``linear``, ``conv2d`` = a layer applied in a compute type,
   ``max_pool_3x3_s2_p1`` (the ResNet-18 stem's pool), and ``max_pool_2x``
   and ``upsample_nearest_2x`` (the VGG and SST stacks' resampling).
@@ -22,6 +23,10 @@ and writes ``bn_dtype`` and keeps its statistics in f32 (JAX
 ``layers.py:79-97``).  The casts are explicit rather than ``torch.autocast``,
 whose op lists differ between the CPU and CUDA.
 
+Under tensor parallelism (``parallel/tensor.py``) a sharded weight is a
+``DTensor``: ``linear`` runs on it with a replicated input and returns the
+replicated output, and a convolution gathers it at use.
+
 Padding: torch's own integer padding is the reference's; the JAX package
 translates it to explicit pads (``((k-1-p, k-1-p), ...)`` for its
 ConvTranspose), which is why a flax ConvTranspose kernel arrives here
@@ -35,16 +40,35 @@ from collections import OrderedDict
 from typing import Iterator, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from spatiotemporal_variable_separation_tpu_torch.core.activations import activation
 from spatiotemporal_variable_separation_tpu_torch.core.inits import init_layer_
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` computed in ``dtype`` (flax ``Dense(dtype=...)``)."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    """``layer(x)`` computed in ``dtype`` (flax ``Dense(dtype=...)``).
+
+    A weight sharded over the model axis (a ``DTensor``) multiplies the
+    input replicated on its mesh; the product is made whole again
+    (all-gathered from output shards, or all-reduced from input shards)
+    before the bias is added, so the layer returns a plain tensor."""
+    w = layer.weight
+    if isinstance(w, DTensor):
+        mesh = w.device_mesh
+        xd = DTensor.from_local(x.to(dtype), mesh, [Replicate()] * mesh.ndim, run_check=False)
+        y = F.linear(xd, w.to(dtype)).redistribute(mesh, [Replicate()] * mesh.ndim)
+        return y.to_local() + layer.bias.to(dtype)
+    return F.linear(x.to(dtype), w.to(dtype), layer.bias.to(dtype))
+
+
+def _whole(weight: torch.Tensor) -> torch.Tensor:
+    """A convolution's weight, gathered whole if it is sharded (DTensor's
+    convolution takes replicated weights only); differentiable."""
+    return weight.full_tensor() if isinstance(weight, DTensor) else weight
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -59,6 +83,13 @@ class BatchNorm(nn.BatchNorm2d):
     updated only while ``update_stats`` is set: ``running_stats_frozen``
     clears it for a recompute under activation checkpointing.
 
+    With a data-parallel ``group`` set (``batch_stats_over``), train mode
+    takes the statistics of the global batch: the ranks' ``(E[x], E[x^2])``
+    are all-reduced in one call, through the autograd-aware all-reduce, so
+    the backward carries the other ranks' terms too, and every rank folds
+    the same biased variance into its running statistics.  A group of one
+    rank computes the local step's values bit for bit.
+
     In eval mode it normalizes with the running statistics.  The output is
     ``out_dtype``.
     """
@@ -67,6 +98,11 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(features, eps=1e-5, momentum=0.1)
         self.out_dtype = out_dtype
         self.update_stats = True
+        self.group = None  # a data-parallel process group: global-batch statistics
+
+    def __getstate__(self):
+        # a process group does not copy or pickle: copies normalize locally.
+        return {**self.__dict__, "group": None}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -74,8 +110,14 @@ class BatchNorm(nn.BatchNorm2d):
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.eps)
             return y.to(self.out_dtype)
-        mean = x.mean((0, 2, 3))
-        var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mean, mean_sq = x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
+        if self.group is not None:
+            # Every rank holds an equal share of the global batch (the train
+            # step splits it evenly), so the global E[x] and E[x^2] are the
+            # mean of the ranks' own; one rank's is its own, bit for bit.
+            stats = _all_reduce(torch.stack([mean, mean_sq]), self.group)
+            mean, mean_sq = stats / dist.get_world_size(self.group)
+        var = (mean_sq - mean * mean).clamp_min(0.0)
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -84,6 +126,22 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.out_dtype)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group's ranks; its backward sums the gradients the same
+    way (``torch.distributed.nn.functional.all_reduce``)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=group)
+
+
+def batch_stats_over(module: nn.Module, group) -> None:
+    """Every BatchNorm of ``module`` takes train-mode statistics over the
+    global batch of ``group``'s ranks (None: the local batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 @contextlib.contextmanager
@@ -126,7 +184,7 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c, dt = self.conv, self.dtype
         conv = F.conv_transpose2d if self.transpose else F.conv2d
-        x = conv(x.to(dt), c.weight.to(dt), c.bias.to(dt), stride=c.stride,
+        x = conv(x.to(dt), _whole(c.weight).to(dt), c.bias.to(dt), stride=c.stride,
                  padding=c.padding)
         if self.bn is not None:
             x = self.bn(x).to(dt)
@@ -176,7 +234,7 @@ class MLP(nn.Sequential):
 
 def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype`` (flax ``Conv(dtype=...)``)."""
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+    return F.conv2d(x.to(dtype), _whole(layer.weight).to(dtype), layer.bias.to(dtype),
                     stride=layer.stride, padding=layer.padding)
 
 

@@ -23,7 +23,12 @@ one model in eval mode on one device and answers requests of up to
   the JAX package scans it; that path launches no rollout kernel (the
   kernels, like the Pallas one, are f32-only);
 * the device is the card unless the caller asks for the CPU: with no card
-  present, constructing a Forecaster without ``device="cpu"`` raises.
+  present, constructing a Forecaster without ``device="cpu"`` raises;
+* with a one-process ``mesh`` (``parallel.make_mesh``; JAX ``serve.py:60-75``)
+  it keeps one replica a mesh entry and splits every call's batch evenly
+  over them: each shard runs on its replica (an f32 rollout launches the
+  kernel once a shard, planned for the shard's rows) and the frames are
+  gathered to the first entry's device in shard order.
 
 Typical use::
 
@@ -45,21 +50,38 @@ import torch
 
 from spatiotemporal_variable_separation_tpu_torch.core.device import resolve_device
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import (
+    device_put,
+    replicated_sharding,
+    shard_batch,
+)
 from spatiotemporal_variable_separation_tpu_torch.utils.weights import load_flax_variables
 
 
 class Forecaster:
-    """Forecast server for one (batch, horizon) signature on one device."""
+    """Forecast server for one (batch, horizon) signature on one device, or
+    over the entries of a one-process mesh."""
 
     def __init__(self, model: torch.nn.Module, cfg, batch_size: int, n_forecast: int,
-                 device=None):
+                 device=None, mesh=None):
+        if mesh is not None:
+            if mesh.in_group:
+                raise ValueError("Forecaster shards over the entries of a one-process mesh "
+                                 "(make_mesh(devices=...)), not over a process group")
+            if batch_size % mesh.size:
+                raise ValueError(f"batch {batch_size} does not split over the {mesh.size} "
+                                 "mesh entries")
+            device = mesh.entries[0]
         device = resolve_device(device, "Forecaster")
         self.cfg = cfg
         self.batch_size = batch_size
         self.n_forecast = n_forecast
         self.device = device
+        self.mesh = mesh
         self.frame_shape = tuple(cfg.frame_shape)
         self.model = model.to(device).eval()
+        self.replicas = ([self.model] if mesh is None
+                         else device_put(self.model, replicated_sharding(mesh)))
 
     @classmethod
     def from_flax_variables(cls, cfg, variables_np: dict, batch_size: int,
@@ -74,7 +96,7 @@ class Forecaster:
 
     @classmethod
     def from_xp_dir(cls, xp_dir: str, batch_size: int, n_forecast: int,
-                    epoch: Optional[int] = None, precision: Optional[str] = None,
+                    epoch: Optional[int] = None, mesh=None, precision: Optional[str] = None,
                     device=None) -> "Forecaster":
         """Serve a checkpoint of the port's training (``checkpoint.py``):
         ``epoch`` names an epoch checkpoint, else the newest is taken.
@@ -87,22 +109,26 @@ class Forecaster:
         ``from_flax_variables``."""
         from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
 
-        device = resolve_device(device, "Forecaster")
+        device = resolve_device(mesh.entries[0] if mesh is not None else device, "Forecaster")
         model, cfg = load_for_eval(xp_dir, name=str(epoch) if epoch is not None else None,
                                    overrides={"precision": precision} if precision else None,
                                    device=device)
-        return cls(model, cfg, batch_size, n_forecast, device=device)
+        return cls(model, cfg, batch_size, n_forecast, device=device, mesh=mesh)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in {next(r.parameters()).device for r in self.replicas}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     @torch.inference_mode()
     def forecast(self, cond: torch.Tensor) -> torch.Tensor:
         """One call at the fixed signature: a (batch_size, nt_cond, *frame)
         tensor on the device -> (batch_size, n_forecast, *frame)."""
-        out, _, _, _ = self.model.get_forecast(cond, self.n_forecast)
-        return out
+        if self.mesh is None:
+            return self.model.get_forecast(cond, self.n_forecast)[0]
+        shards = shard_batch(self.mesh, cond)
+        outs = [rep.get_forecast(c, self.n_forecast)[0] for rep, c in zip(self.replicas, shards)]
+        return torch.cat([o.to(self.device) for o in outs])
 
     def predict(self, cond: np.ndarray) -> np.ndarray:
         """Forecast ``n_forecast`` frames for up to ``batch_size`` windows.

@@ -1,6 +1,8 @@
 """Training driver (reference ``var_sep/train.py:91-175``).
 
-Torch counterpart of the JAX package's ``train/loop.py``, on one device:
+Torch counterpart of the JAX package's ``train/loop.py``, on one device or,
+in a process group, on one rank of a data- or tensor-parallel mesh (rank 0
+alone logs and writes files; see ``parallel/``):
 * each step's batch is made on the card inside the step
   (``make_fused_datagen_step``: Moving MNIST rendered, or WaveEq or Chairs
   windows gathered from the train split uploaded once) unless
@@ -27,6 +29,7 @@ import time
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 from spatiotemporal_variable_separation_tpu_torch.checkpoint import (
     list_checkpoints,
@@ -42,6 +45,15 @@ from spatiotemporal_variable_separation_tpu_torch.data.registry import (
     make_train_dataset,
     steps_per_epoch,
 )
+from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
+from spatiotemporal_variable_separation_tpu_torch.parallel.distributed import group_rank
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import make_mesh
+from spatiotemporal_variable_separation_tpu_torch.parallel.tensor import (
+    full_tensor,
+    model_axis_size,
+    shard_state,
+    state_shardings,
+)
 from spatiotemporal_variable_separation_tpu_torch.train.state import TrainState, create_train_state
 from spatiotemporal_variable_separation_tpu_torch.train.step import (
     make_fused_datagen_step,
@@ -50,13 +62,8 @@ from spatiotemporal_variable_separation_tpu_torch.train.step import (
 from spatiotemporal_variable_separation_tpu_torch.utils.profiling import MetricsLogger, trace
 
 
-def refuse_parallel(cfg: ExperimentConfig) -> None:
-    """The port trains on one device so far: more raises."""
-    if (cfg.num_devices or 1) > 1 or cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"--num_devices {cfg.num_devices} / --model_parallel {cfg.model_parallel}: the "
-            "port trains on one device so far; data and tensor parallelism come with "
-            "ROADMAP.md Queue 1, slice 9 (parallelism)")
+def _quiet(line: str) -> None:
+    """The log of a rank other than 0."""
 
 
 def _fetch(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -70,15 +77,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _stop_agreed(stop: bool, control) -> bool:
+    """In a process group, stop when any rank was asked to (one all-reduce
+    on a gloo group of host tensors: the device queue is not drained)."""
+    if control is None:
+        return stop
+    flag = torch.tensor([int(stop)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=control)
+    return bool(flag.item())
+
+
 def _stability_monitor(state: TrainState, cfg: ExperimentConfig,
-                       log_fn: Callable[[str], None]):
+                       log_fn: Callable[[str], None], main: bool = True):
     """The ``--monitor_stability`` hook (JAX ``train/loop.py:122-175``):
     ``(check(epoch), logger)``.  ``check`` probes ``max(nt_pred, 10)`` steps
     of a seeded standard-normal batch of 8 windows, logs a line and appends
     a row to ``<xp_dir>/stability.csv`` (its own file: ``metrics.csv``'s
     columns are fixed at its first row).  The probe runs the model in eval
     mode under ``no_grad`` and restores its mode, and draws from no torch
-    generator, so training goes on exactly as it would have without it."""
+    generator, so training goes on exactly as it would have without it.
+    In a process group every rank calls ``check`` and rank 0 (``main``)
+    probes; under tensor parallelism on a whole copy of the model, gathered
+    by every rank first."""
     import numpy as np
 
     from spatiotemporal_variable_separation_tpu_torch.eval.diagnostics import (
@@ -96,11 +116,14 @@ def _stability_monitor(state: TrainState, cfg: ExperimentConfig,
     cond = np.random.default_rng(0).standard_normal(
         (8, cfg.nt_cond) + cfg.frame_shape).astype(np.float32)
     slog = (MetricsLogger(cfg.xp_dir, "stability.csv")
-            if os.path.isdir(cfg.xp_dir) else None)
+            if main and os.path.isdir(cfg.xp_dir) else None)
 
     def check(epoch: int) -> None:
-        rep = finalize_probe(probe(state.model, cond))
-        bn = bn_health(state.model)
+        module = whole_model(state.model, cfg)
+        if not main:
+            return
+        rep = finalize_probe(probe(module, cond))
+        bn = bn_health(module)
         # noise conditioning: |S| is indicative only, the verdict rests on
         # the gain and BatchNorm health.
         bad = is_unstable(rep["gain_geomean"], bn["max_var"], None, horizon=horizon)
@@ -117,20 +140,56 @@ def _stability_monitor(state: TrainState, cfg: ExperimentConfig,
     return check, slog
 
 
-def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: int = 50,
-                 log_fn: Callable[[str], None] = print, resume: bool = False,
-                 profile: bool = False, monitor_stability: bool = False,
-                 device_gen=None) -> TrainState:
+def whole_model(model: torch.nn.Module, cfg: ExperimentConfig) -> torch.nn.Module:
+    """``model``, or under tensor parallelism a plain copy of it with every
+    sharded weight gathered whole (a collective: every rank calls it)."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(p, DTensor) for p in model.parameters()):
+        return model
+    device = next(p for p in model.parameters() if not isinstance(p, DTensor)).device
+    copy = build_separable_network(cfg, device, torch.Generator().manual_seed(cfg.seed))
+    copy.load_state_dict({k: full_tensor(v) for k, v in model.state_dict().items()})
+    return copy.train(model.training)
+
+
+def run_training(cfg: ExperimentConfig, dataset=None, mesh=None, device=None,
+                 log_every: int = 50, log_fn: Callable[[str], None] = print,
+                 resume: bool = False, profile: bool = False,
+                 monitor_stability: bool = False, device_gen=None) -> TrainState:
     """Train ``cfg`` and return the final state.  The device is the card
     unless the caller asks for the CPU (``device="cpu"``); without a card
     this raises.  ``dataset``: a host dataset that wins over device
     synthesis.  ``device_gen``: a batch generator on ``device`` to train
     from in place of the registry's (a sampler over data held in memory,
     e.g. ``DeviceItems`` over ``TaxiBJ.from_arrays``).  ``log_every``: steps
-    between loss lines (0: none)."""
+    between loss lines (0: none).
+
+    ``mesh``: by default built from ``cfg.num_devices`` and
+    ``cfg.model_parallel`` (JAX ``train/loop.py:45-46``): in a process group
+    over its ranks (``parallel.distributed.launch`` or ``torchrun`` starts
+    them; ``cli.main --num_devices N`` does), with ``device`` as this
+    rank's device when given, else over this process's one device, so that
+    more devices raise JAX's ``requested N devices, have 1``.  A mesh given
+    names the device itself: ``device`` then raises.  On a mesh with a model axis the kernels are sharded over it
+    (``parallel.shard_state``, JAX ``:94-104``)."""
     cfg = cfg.validate()
-    refuse_parallel(cfg)
-    device = resolve_device(device, "run_training")
+    if mesh is not None and device is not None:
+        raise ValueError("run_training: give a mesh or a device, not both")
+    if mesh is None:
+        if dist.is_available() and dist.is_initialized():
+            mesh = make_mesh(cfg.num_devices, model_parallel=cfg.model_parallel,
+                             rank_device=None if device is None
+                             else resolve_device(device, "run_training"))
+        else:
+            mesh = make_mesh(cfg.num_devices, devices=[resolve_device(device, "run_training")],
+                             model_parallel=cfg.model_parallel)
+    device = mesh.local_device
+    main = group_rank() == 0
+    if not main:
+        log_fn = _quiet
+    # gloo, on host tensors: the ranks agree on a stop between steps.
+    control = dist.new_group(backend="gloo") if mesh.in_group else None
     # Freeze steps_per_epoch across resumes: the MultiStep schedule is
     # step // steps_per_epoch, so a resumed run with another dataset size or
     # --steps_per_epoch would silently move every epoch milestone.  The
@@ -139,6 +198,8 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
     params_path = os.path.join(cfg.xp_dir, "params.json")
     if resume and os.path.isfile(params_path):
         saved = ExperimentConfig.from_json_file(params_path)
+        if control is not None:
+            dist.barrier(group=control)  # read by every rank before rank 0 rewrites it
         if cfg.steps_per_epoch is None and saved.steps_per_epoch is not None:
             cfg = dataclasses.replace(cfg, steps_per_epoch=saved.steps_per_epoch)
             log_fn(f"resume: adopting frozen steps_per_epoch={cfg.steps_per_epoch}")
@@ -150,36 +211,46 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
         if diffs:
             for k, (old, new) in sorted(diffs.items()):
                 log_fn(f"resume: config field {k!r} changed: {old!r} -> {new!r}")
-            cfg.save(params_path)
+            if main:
+                cfg.save(params_path)
     # an explicitly passed dataset always wins over device synthesis.
     if dataset is not None:
         device_gen = None
     elif device_gen is None:
-        device_gen = make_device_generator(cfg, device)
+        device_gen = make_device_generator(cfg, mesh)
     if dataset is None and device_gen is None:
         dataset = make_train_dataset(cfg)
     n_steps = steps_per_epoch(cfg, dataset if dataset is not None else device_gen)
     if cfg.steps_per_epoch is None:
         cfg = dataclasses.replace(cfg, steps_per_epoch=n_steps)
-        if os.path.isfile(params_path):
+        if main and os.path.isfile(params_path):
             cfg.save(params_path)
+    if control is not None:
+        dist.barrier(group=control)  # rank 0's params.json is written
 
     state = create_train_state(cfg, n_steps, device)
     if resume and list_checkpoints(cfg.xp_dir):
         restore_checkpoint(cfg.xp_dir, state)
         log_fn(f"resumed from step {state.step}")
+    shardings = None
+    if model_axis_size(mesh) > 1:
+        shardings = state_shardings(state.model, mesh)
+        shard_state(state, mesh, shardings)
     if device_gen is not None:
-        fused_step = make_fused_datagen_step(state.model, cfg, state.optimizer, device_gen)
+        fused_step = make_fused_datagen_step(state.model, cfg, state.optimizer, device_gen,
+                                             mesh, shardings)
     else:
-        step = make_train_step(state.model, cfg, state.optimizer)
+        step = make_train_step(state.model, cfg, state.optimizer, mesh, shardings)
 
-    log_fn(f"training: {cfg.data}/{cfg.architecture} on 1 device(s) ({device}), "
+    where = (f"{', '.join(f'{k} {v}' for k, v in mesh.shape.items())}; rank 0 on {device}"
+             if mesh.in_group else str(device))
+    log_fn(f"training: {cfg.data}/{cfg.architecture} on {mesh.size} device(s) ({where}), "
            f"{cfg.epochs} epochs x {n_steps} steps, batch {cfg.batch_size}, "
            f"precision {cfg.precision}")
-    mlog = MetricsLogger(cfg.xp_dir) if os.path.isdir(cfg.xp_dir) else None
+    mlog = MetricsLogger(cfg.xp_dir) if main and os.path.isdir(cfg.xp_dir) else None
     stability_check, slog = None, None
     if monitor_stability:
-        stability_check, slog = _stability_monitor(state, cfg, log_fn)
+        stability_check, slog = _stability_monitor(state, cfg, log_fn, main)
     t_start = time.time()
 
     # Preemption safety: a SIGTERM sets a flag that the loop checks between
@@ -196,6 +267,7 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
         prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
         handler_installed = True
     pending_log = None  # (step, epoch, device-resident metrics)
+    crashed = False
 
     def flush_pending():
         nonlocal pending_log
@@ -220,7 +292,7 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
                 for _ in range(n_steps - skip):
                     yield fused_step
             else:
-                it = epoch_iterator(cfg, dataset, epoch)
+                it = epoch_iterator(cfg, dataset, epoch, mesh)
                 for _ in range(skip):
                     next(it, None)  # the (seed, epoch)-seeded stream replays
                     # exactly the batches trained on before the interrupt
@@ -233,14 +305,14 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
         metrics = None
         first_step_t0 = time.time()
         # --profile traces steps 3..13; they are normal training steps.
-        profile_after = state.step + 3 if profile else -1
+        profile_after = state.step + 3 if profile and main else -1
         profile_ctx = None
         for epoch in range(start_epoch, cfg.epochs):
             t_epoch = time.time()
             in_epoch_skip = max(0, state.step - epoch * n_steps)
             epoch_steps = n_steps - in_epoch_skip
             for do_update in updates(epoch, in_epoch_skip):
-                if stop_requested.is_set():
+                if _stop_agreed(stop_requested.is_set(), control):
                     raise KeyboardInterrupt  # between steps: the state is whole
                 metrics = do_update(state)
                 if first_step_t0 is not None:
@@ -284,6 +356,9 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
                 stability_check(epoch + 1)
     except KeyboardInterrupt:
         log_fn("interrupted (Ctrl-C/SIGTERM) — saving final checkpoint")
+    except BaseException:
+        crashed = True
+        raise
     finally:
         if handler_installed:
             signal.signal(signal.SIGTERM,
@@ -291,8 +366,11 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
         # written on EVERY exit path (crashes included), so 'final' is the
         # newest state.  A failed device (a CUDA error) cannot save; keep
         # the last periodic checkpoint and let the first error propagate.
+        # In a process group the save is a collective that a rank which
+        # failed alone cannot join: its error ends the job instead.
         try:
-            save_checkpoint(cfg.xp_dir, state, name="final")
+            if not (crashed and control is not None):
+                save_checkpoint(cfg.xp_dir, state, name="final")
         except RuntimeError as e:
             log_fn(f"final checkpoint skipped: {e}")
         try:
@@ -302,5 +380,7 @@ def run_training(cfg: ExperimentConfig, dataset=None, device=None, log_every: in
         for logger in (mlog, slog):
             if logger is not None:
                 logger.close()
+        if control is not None:
+            dist.destroy_process_group(control)
     log_fn(f"total time {time.time() - t_start:.1f}s")
     return state

@@ -16,6 +16,16 @@ device, reseeded from ``step_seed(cfg.seed, DATA_SALT, step)``.  A resumed run
 therefore needs only the model, the optimizer and the step.  A caller may
 inject ``t_random`` instead (the parity tests do, since ``jax.random``
 streams cannot be reproduced in torch).
+
+With a ``mesh`` over a process group (``parallel.make_mesh``; one rank a
+device) the step is data-parallel, and an N-rank step is the one-process
+step at the same global batch (JAX ``train/step.py:55-80``): each rank
+computes the loss of its rows, BatchNorm takes global-batch statistics
+(``models.layers.BatchNorm``), gradients are averaged over the data ranks
+(``DistributedDataParallel``, or by hand where the kernels are sharded over
+a model axis, ``parallel/tensor.py``) and the metrics are those of the
+global batch on every rank.  ``t_random`` is the same on every rank: it is
+drawn from ``(cfg.seed, step)`` alone.
 """
 
 from __future__ import annotations
@@ -24,8 +34,13 @@ from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Prot
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.core.config import ConfigError, ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.models.layers import batch_stats_over
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import DATA_AXIS, shard_batch
+from spatiotemporal_variable_separation_tpu_torch.parallel.tensor import expect_shardings
 
 if TYPE_CHECKING:
     from spatiotemporal_variable_separation_tpu_torch.train.state import TrainState
@@ -82,19 +97,81 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: ExperimentConfig,
     return optimizer
 
 
+class _Losses(torch.nn.Module):
+    """``compute_losses`` as a module's forward, for DDP to wrap (DDP
+    prepares its gradient reduction in ``forward``)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args, **kwargs):
+        return self.model.compute_losses(*args, **kwargs)
+
+
+def _group_mesh(mesh):
+    """The mesh a step shards over: one over a process group, or None (no
+    mesh, or a one-process mesh of one device)."""
+    if mesh is None or mesh.in_group:
+        return mesh
+    if mesh.size > 1:
+        raise ValueError(
+            f"training over {mesh.size} devices runs one process a device: start the "
+            "ranks with parallel.distributed.launch (cli.main --num_devices N does) or "
+            "torchrun")
+    return None
+
+
 def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
-                    optimizer: torch.optim.Adam) -> Callable:
+                    optimizer: torch.optim.Optimizer, mesh=None,
+                    state_shardings=None) -> Callable:
     """Build ``step(state, cond, target, t_random=None) -> metrics``.
 
     ``cond`` (B, nt_cond, *frame) and ``target`` (B, nt_pred, *frame) lie
-    on the model's device.  ``metrics`` holds detached f32 scalars on that
-    device (reading one waits for the step).
+    on the model's device: with a ``mesh``, this rank's B / data-ranks rows
+    of the global batch (``parallel.shard_batch``).  ``metrics`` holds
+    detached f32 scalars on that device (reading one waits for the step).
+    ``state_shardings`` (``parallel.state_shardings``): the placements
+    the state must hold (``parallel.shard_state`` applies them).  Where
+    JAX's step pins them as its ``out_shardings``, this one checks them once
+    here (``parallel.tensor.expect_shardings``) and keeps the state as it
+    finds it.
     """
+    if state_shardings is not None:
+        expect_shardings(model, state_shardings)
     cfg = cfg.validate()
     lamb_t = cfg.effective_lamb_t
     total_t = cfg.nt_cond + cfg.nt_pred
     # train.py:72-76: t_random in [nt_cond, T) for offset=0, [nt_cond, T] else.
     upper = total_t if cfg.offset == 0 else total_t + 1
+    mesh = _group_mesh(mesh)
+    losses, data_group, n_data, by_hand = model.compute_losses, None, 1, False
+    if mesh is not None:
+        n_data = mesh.shape[DATA_AXIS]
+        if cfg.batch_size % n_data:
+            raise ConfigError(f"--batch_size {cfg.batch_size} does not split over the "
+                              f"{n_data} data ranks of the mesh")
+        data_group = mesh.group(DATA_AXIS)
+        batch_stats_over(model, data_group)
+        by_hand = any(isinstance(p, DTensor) for p in model.parameters())
+        if not by_hand:
+            # the running statistics are equal on every rank already (the
+            # same global-batch statistics folded in): no buffer broadcast.
+            device = next(model.parameters()).device
+            losses = torch.nn.parallel.DistributedDataParallel(
+                _Losses(model), device_ids=[device] if device.type == "cuda" else None,
+                process_group=data_group, broadcast_buffers=False)
+
+    def average_grads() -> None:
+        """The data ranks' mean gradient, by hand (DDP does not take DTensor
+        parameters): one all-reduce of every gradient's local shard."""
+        grads = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
+                 for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=data_group)
+        flat /= n_data
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
 
     def step(state: TrainState, cond: torch.Tensor, target: torch.Tensor,
              t_random: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -106,13 +183,21 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
             group["lr"] = lr
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = model.compute_losses(
+        loss, metrics = losses(
             cond, target, t_random, cfg.offset, cfg.lamb_ae, cfg.lamb_s, lamb_t,
             cfg.lamb_pred, cfg.average_tloss, lamb_s_norm=cfg.lamb_s_norm)
         loss.backward()
+        if by_hand and n_data > 1:
+            average_grads()
         optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_group is not None:
+            # every rank logs the global batch's metrics.
+            packed = torch.stack([v.float() for v in metrics.values()])
+            dist.all_reduce(packed, group=data_group)
+            metrics = dict(zip(metrics, packed / n_data))
+        return metrics
 
     return step
 
@@ -128,17 +213,25 @@ def datagen_batch(generator: DeviceGenerator, cfg: ExperimentConfig, step: int,
 
 
 def make_fused_datagen_step(model: torch.nn.Module, cfg: ExperimentConfig,
-                            optimizer: torch.optim.Adam,
-                            generator: DeviceGenerator) -> Callable:
+                            optimizer: torch.optim.Optimizer,
+                            generator: DeviceGenerator, mesh=None,
+                            state_shardings=None) -> Callable:
     """Build ``step(state, t_random=None) -> metrics`` that makes the step's
     batch on the card (``datagen_batch``) and runs ``make_train_step``'s
     update on it (JAX ``train/step.py:117-149``).  The host only seeds a
-    generator and enqueues work: no device->host copy."""
-    inner = make_train_step(model, cfg, optimizer)
+    generator and enqueues work: no device->host copy.
+
+    With a ``mesh``, every rank makes the whole global batch from the same
+    seed and keeps its data rank's rows ``[r*b, (r+1)*b)``: exactly the
+    one-process batch, at the cost of making all of it on every rank."""
+    inner = make_train_step(model, cfg, optimizer, mesh, state_shardings)
+    mesh = _group_mesh(mesh)
     rng = torch.Generator(device=generator.device)
 
     def step(state: TrainState, t_random: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        cond, target = datagen_batch(generator, cfg, state.step, rng)
-        return inner(state, cond, target, t_random=t_random)
+        batch = datagen_batch(generator, cfg, state.step, rng)
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
+        return inner(state, *batch, t_random=t_random)
 
     return step

@@ -71,7 +71,7 @@ def test_amp_flags_map_to_bf16():
         _cfg("--torch_amp", "--apex_amp")
 
 
-def test_devices_and_refusals():
+def test_devices_and_refusals(tmp_path, monkeypatch):
     parse = toptions.build_parser()
     toptions.add_platform_arg(parse)
     base = ["--xp_dir", "/x", "--data_dir", "/d"]
@@ -80,9 +80,20 @@ def test_devices_and_refusals():
     assert toptions.device_from_args(parse.parse_args(base + ["--platform", "cpu",
                                                                "--device", "1"])) == "cpu"
     assert _cfg("--num_devices", "1").num_devices == 1
+    # the parallel flags parse into the JAX package's config
     for flags in (["--num_devices", "4"], ["--model_parallel", "2", "--num_devices", "2"]):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            _cfg(*flags)
+        ref = joptions.config_from_args(joptions.build_parser().parse_args(base + flags))
+        ours = _cfg(*flags).validate()
+        assert (ours.num_devices, ours.model_parallel) == (ref.num_devices, ref.model_parallel)
+    # --num_devices N trains on N ranks: N CPU ranks under --platform cpu
+    # (tests/test_torch_train_loop.py runs two), else the cards; more cards
+    # than the machine has raise JAX's message before any rank starts.
+    assert tmain.rank_devices(3, "cpu") == [torch.device("cpu")] * 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert tmain.rank_devices(1, None) == [torch.device("cuda", 0)]
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        tmain.main(["--xp_dir", str(tmp_path / "xp"), "--data_dir", "/d", "--num_devices", "2"])
 
 
 @pytest.fixture

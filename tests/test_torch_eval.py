@@ -43,6 +43,7 @@ from spatiotemporal_variable_separation_tpu_torch.eval import common as tcommon
 from spatiotemporal_variable_separation_tpu_torch.models import layers as tl
 from spatiotemporal_variable_separation_tpu_torch.models import separable
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import make_mesh
 from test_torch_layers import port, random_variables
 from torch_threads import few_torch_threads  # noqa: F401
 
@@ -212,11 +213,18 @@ def test_reestimate_batch_stats_matches_jax_and_leaves_the_callers_model():
 
 def test_evaluator_runs_on_one_device():
     _, _, tmodel = _pair("f32")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tcommon.Evaluator(tmodel, mesh=object())
+    # over a two-entry CPU mesh it runs, and equals one device
+    # (tests/test_torch_parallel_eval.py holds the sharded paths)
+    cond = _window(1)
+    ev2 = tcommon.Evaluator(tmodel, mesh=make_mesh(devices=["cpu"] * 2))
+    fc2, s2 = ev2.forecast(cond, N)
+    fc1, s1 = tcommon.Evaluator(tmodel).forecast(cond, N)
+    assert float((fc2 - fc1).abs().mean()) <= 1e-5
+    np.testing.assert_allclose(s2.numpy(), s1.numpy(), rtol=1e-5, atol=1e-7)
     tmodel.train()
     ev = tcommon.Evaluator(tmodel)
     assert tmodel.training and not ev.model.training and ev.device.type == "cpu"
+    assert not any(r.training for r in ev2.replicas)
 
 
 def test_bn_reestimate_pass_draws_like_jax():

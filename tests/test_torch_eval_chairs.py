@@ -158,8 +158,14 @@ def test_cli_prints_and_records_results(chairs_dir, tmp_path, capsys, monkeypatc
     assert "max_batches" not in json.loads((xp / "evals.json").read_text())["chairs_swap_t3"]
     assert _rows(xp)["mse"].shape == (124,)
     assert _flags(_parser_of(tcli.main, monkeypatch)) == _flags(_parser_of(jcli.main, monkeypatch))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tcli.main(base + ["--devices", "2"])
+    # --devices 2 --platform cpu: a mesh of two CPU entries, equal to one device
+    sharded = tcli.main(base + ["--max_batches", "2", "--devices", "2"])
+    for k in means:
+        np.testing.assert_allclose(sharded[k], means[k], rtol=1e-5, err_msg=k)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        tcli.main(base[:-2] + ["--devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(base[:-2])

@@ -124,20 +124,29 @@ def test_eval_cli_prints_and_records_results(experiment, capsys, cli, protocol, 
 
 
 def test_eval_cli_device_rules(experiment, monkeypatch):
-    """The card unless --platform cpu; --devices above 1 raises."""
+    """The card unless --platform cpu; --devices N shards over a mesh of N
+    (CPU entries under --platform cpu), equal to one device; more cards than
+    the machine has raise JAX's message."""
     xp, data = experiment
     base = ["--xp_dir", xp, "--data_dir", data, "--nt_pred", "5", "--max_batches", "1"]
+    cpu = ["--platform", "cpu", "--save_arrays", "0"]
     for cli in (ttest_mnist, ttest_swap):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            cli.main(base + ["--platform", "cpu", "--devices", "2"])
-    ttest_mnist.main(base + ["--platform", "cpu", "--devices", "1", "--save_arrays", "0"])
+        one = cli.main(base + cpu + ["--devices", "1"])
+        two = cli.main(base + cpu + ["--devices", "2"])
+        for k in one:
+            np.testing.assert_allclose(two[k], one[k], rtol=1e-5, err_msg=k)
+    stats = tserve_bench.main(["--xp_dir", xp, "--platform", "cpu", "--devices", "4",
+                               "--batch_size", "4", "--n_forecast", "3", "--iters", "1"])
+    assert stats["batch"] == 4 and stats["p50_ms"] > 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        ttest_mnist.main(base + ["--devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttest_mnist.main(base)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve_bench.main(["--xp_dir", xp])
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tserve_bench.main(["--xp_dir", xp, "--platform", "cpu", "--devices", "4"])
 
 
 def test_make_mnist_test_matches_the_jax_cli(tmp_path, capsys):

@@ -39,6 +39,7 @@ from spatiotemporal_variable_separation_tpu_torch.eval import common as tcommon
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist as tmnist
 from spatiotemporal_variable_separation_tpu_torch.eval import mnist_swap as tswap
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import make_mesh
 from test_torch_layers import port, random_variables
 from torch_threads import few_torch_threads  # noqa: F401
 
@@ -213,7 +214,8 @@ def test_archive_cap(tmp_path, data_dir, bundles):
 
 def test_bn_reestimate_and_mesh(tmp_path, data_dir, bundles):
     """``bn_reestimate`` changes the score and leaves the caller's model as it
-    was; ``mesh`` raises (the port evaluates on one device)."""
+    was; over a ``mesh`` of two CPU entries the score is the one-device
+    score."""
     _, (tmodel, cfg) = bundles
     before = {k: v.clone() for k, v in tmodel.state_dict().items()}
     kw = dict(nt_pred=5, batch_size=4, max_batches=1, model_bundle=(tmodel, cfg),
@@ -222,5 +224,7 @@ def test_bn_reestimate_and_mesh(tmp_path, data_dir, bundles):
     fresh = tmnist.evaluate(_xp(tmp_path, "b"), data_dir, bn_reestimate=2, **kw)
     assert fresh["mse"] != plain["mse"]
     assert all(torch.equal(v, tmodel.state_dict()[k]) for k, v in before.items())
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tmnist.evaluate(_xp(tmp_path, "c"), data_dir, mesh=object(), **kw)
+    sharded = tmnist.evaluate(_xp(tmp_path, "c"), data_dir,
+                              mesh=make_mesh(devices=["cpu"] * 2), **kw)
+    for k in plain:
+        np.testing.assert_allclose(sharded[k], plain[k], rtol=1e-5, err_msg=k)

@@ -251,8 +251,14 @@ def test_test_taxibj_cli_records_and_archives(taxibj_dir, tmp_path, capsys, monk
     ttest_taxibj.main(base + ["--epoch", "1", "--max_batches", "1", "--bn_reestimate", "1"])
     record = json.loads((tmp_path / "evals.json").read_text())["taxibj@ep1"]
     assert record["epoch"] == 1 and record["bn_reestimate"] == 1
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        ttest_taxibj.main(base + ["--devices", "2"])
+    # --devices 2 --platform cpu: a mesh of two CPU entries, equal to one device
+    sharded = ttest_taxibj.main(base + ["--max_batches", "2", "--batch_size", "16",
+                                        "--devices", "2"])
+    np.testing.assert_allclose(sharded["mse_t4"], means["mse_t4"], rtol=1e-5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        ttest_taxibj.main(base[:-2] + ["--devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttest_taxibj.main(["--xp_dir", xp, "--data_dir", taxibj_dir])

@@ -154,8 +154,13 @@ def test_test_wave_cli_records_and_archives(experiments, wave_dir, capsys, monke
                      "--save_arrays"])
     assert "archives are written for full grids only" in capsys.readouterr().out
     assert not os.path.exists(os.path.join(xp_p, "predictions.npz"))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        ttest_wave.main(base + ["--devices", "2"])
+    # --devices 2 --platform cpu: a mesh of two CPU entries, equal to one device
+    np.testing.assert_allclose(ttest_wave.main(base + ["--devices", "2"])["mse_t40"],
+                               pinned["mse_t40"], rtol=1e-5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        ttest_wave.main(["--xp_dir", xp, "--data_dir", wave_dir, "--devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttest_wave.main(["--xp_dir", xp, "--data_dir", wave_dir])

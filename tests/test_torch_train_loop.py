@@ -3,7 +3,8 @@ small width (DCGAN nf 8, codes 16/8, H 32, B 4) on synthetic idx digits:
 the fused datagen step against ``make_train_step`` on the same batch, both
 data paths, the frozen ``steps_per_epoch``, a run interrupted by SIGTERM
 and resumed that is bitwise the uninterrupted run (the JAX package's
-``tests/test_resume_outcome.py``), the profiler trace, and the refusals.
+``tests/test_resume_outcome.py``), the profiler trace, two ranks against one
+device, and the refusals.
 
 No JAX here: the loop's contract is the port's own (the JAX package's loop
 draws with ``jax.random``, which torch cannot reproduce); the pieces it
@@ -20,9 +21,13 @@ import pytest
 import torch
 
 from conftest import write_idx_images
+from spatiotemporal_variable_separation_tpu_torch.checkpoint import restore_checkpoint
+from spatiotemporal_variable_separation_tpu_torch.cli import main as cli_main
 from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
 from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import DeviceMovingMNIST
 from spatiotemporal_variable_separation_tpu_torch.data.moving_mnist import synthetic_digits
+from spatiotemporal_variable_separation_tpu_torch.parallel.distributed import launch
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import make_mesh
 from spatiotemporal_variable_separation_tpu_torch.train import (
     create_train_state,
     datagen_batch,
@@ -213,10 +218,63 @@ def test_refusals(tmp_path, mnist_dir, monkeypatch):
     state = run_training(_cfg(tmp_path / "no_s", mnist_dir, epochs=1, steps_per_epoch=1,
                               no_s=True, code_size_s=8), device="cpu", log_fn=logs.append)
     assert state.step == 1 and type(state.model.Es).__name__ == "ConstantS"
+    # Two ranks (the train CLI's --num_devices 2 --platform cpu, through the
+    # launcher) train the run of one device: the same global batches, the
+    # gradients averaged, global-batch BatchNorm statistics.
+    ranks = _cfg(tmp_path / "ranks", mnist_dir, epochs=1, steps_per_epoch=2, num_devices=2)
+    one = run_training(_cfg(tmp_path / "one", mnist_dir, epochs=1, steps_per_epoch=2),
+                       device="cpu", log_every=1, log_fn=logs.append)
+    launch(cli_main._train_rank, (ranks, {"log_every": 1}), cli_main.rank_devices(2, "cpu"),
+           timeout=300)
+    restored = create_train_state(ranks, 2, device="cpu")
+    restore_checkpoint(ranks.xp_dir, restored)
+    assert restored.step == one.step == 2
+    for k, v in one.model.state_dict().items():
+        np.testing.assert_allclose(restored.model.state_dict()[k].numpy(), v.numpy(),
+                                   rtol=1e-4, atol=2 * one.step * ranks.lr, err_msg=k)
+    # rank 0 alone wrote metrics.csv, with the global batch's losses
+    two, single = _losses(tmp_path / "ranks"), _losses(tmp_path / "one")
+    assert two.keys() == single.keys() == {1, 2}
+    np.testing.assert_allclose([float(v) for v in two.values()],
+                               [float(v) for v in single.values()], rtol=1e-4)
+    # One process has one device: more raise JAX's message.
     for kw in ({"num_devices": 2}, {"model_parallel": 2, "num_devices": 2}):
-        with pytest.raises(NotImplementedError, match="slice 9"):
+        with pytest.raises(ValueError, match="requested 2 devices, have 1"):
             run_training(ExperimentConfig(**{**SMALL, **kw}), device="cpu")
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide 1 devices"):
+        run_training(ExperimentConfig(**{**SMALL, "model_parallel": 2}), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training(cfg)
     assert not os.path.isdir(tmp_path / "xp" / "checkpoints")
+
+
+def test_a_group_made_elsewhere_trains_on_the_device_asked_for(tmp_path, mnist_dir):
+    """In a gloo group that the caller made (not ``initialize_multihost``),
+    ``run_training(device=...)`` trains on that device, and without one it
+    raises: gloo does not say which device a rank computes on, and the port
+    never falls back to the CPU unasked."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        state = run_training(_cfg(tmp_path / "cpu", mnist_dir, epochs=1, steps_per_epoch=1),
+                             device="cpu", log_fn=lambda s: None)
+        assert state.step == 1
+        assert {p.device for p in state.model.parameters()} == {torch.device("cpu")}
+        cfg = _cfg(tmp_path / "none", mnist_dir, epochs=1, steps_per_epoch=1)
+        with pytest.raises(ValueError, match="this rank's device is unknown"):
+            run_training(cfg, log_fn=lambda s: None)
+        if torch.cuda.is_available():
+            state = run_training(_cfg(tmp_path / "card", mnist_dir, epochs=1, steps_per_epoch=1),
+                                 device="cuda:0", log_fn=lambda s: None)
+            assert {p.device for p in state.model.parameters()} == {torch.device("cuda", 0)}
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                run_training(cfg, device="cuda:0", log_fn=lambda s: None)
+        with pytest.raises(ValueError, match="a mesh or a device, not both"):
+            run_training(cfg, mesh=make_mesh(devices=["cpu"]), device="cpu")
+        assert not os.path.isdir(tmp_path / "none" / "checkpoints")
+    finally:
+        dist.destroy_process_group()
