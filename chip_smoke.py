@@ -8,7 +8,8 @@ scores its content swap; then makes the TaxiBJ and SST stand-ins in memory,
 trains both recipes and scores them; then trains the ``--no_s`` ablation,
 probes the rollout's stability (``diagnose``, ``--monitor_stability``) and
 drives the operations tooling; then trains data- and tensor-parallel and
-evaluates and serves over a mesh, as far as one card can show.
+evaluates and serves over a mesh, as far as one card can show; then runs
+the port's benchmark and measurement tools.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -116,7 +117,9 @@ result line is printed):
       on all 500 sequences, ``cli.test_mnist`` at nt_pred 95 cut to
       ``T95_MAX_BATCHES`` batches, archives capped at ``ARCHIVE_CAP``: finite
       means, SSIM in (0, 1], the ``evals.json`` records, and 0 rollout
-      launches (the bf16 path loops its integrator).  Then the same
+      launches (the bf16 path loops its integrator); the t95 forecast's SSIM
+      step by step (from its archive) beside each step's share of pixels at
+      0 or 1.  Then the same
       protocols through ``evaluate(model_bundle=...)`` on the f32 seed-0
       model, cut to ``BUNDLE_MAX_BATCHES``: one cluster launch for each
       kernel-bearing call (a score, or an archived batch's swap forecast);
@@ -186,7 +189,7 @@ result line is printed):
     b. the stand-in's and the split's seconds; ``DeviceItems`` over the
        train split (1.42 GB) and a B 100 batch of the same draws against the
        host items, bitwise; ms a batch;
-    c. ``run_training(device_gen=...)`` at the recipe, bf16, 2 epochs x 20
+    c. ``run_training(device_gen=...)`` at the recipe, bf16, 2 epochs x 10
        steps: the loss falls, 0 launches, samples/s, the fused step's ms and
        a profiler trace; a run stopped by SIGTERM after step 8 and resumed,
        bitwise under ``cudnn.deterministic``;
@@ -236,7 +239,7 @@ result line is printed):
        with the same verdict; then on phase 8's bf16 flagship checkpoints
        (0 launches), whose verdicts it prints;
     d. ``supervise`` over the port's train CLI in child processes (the
-       flagship, bf16 B 128, 2 epochs x 20 steps, ``cudnn.deterministic``
+       flagship, bf16 B 128, 2 epochs x 10 steps, ``cudnn.deterministic``
        in each child): an uninterrupted run; the same run stopped once by
        the supervisor's deadline, which its clock passes once the child
        prints step 5 (SIGTERM, the guarded final save), and finished by a
@@ -281,7 +284,20 @@ result line is printed):
        devices, have 1``; ``--devices 1`` runs (the wave recipe's f32 seed-0
        checkpoint on a small ``gen_wave`` corpus, through the streaming
        kernel).
-Each phase, and each part of phases 14 and 15, prints its seconds on a line
+16. the port's measurement programs, each through its ``main`` in this
+    process, its JSON line parsed:
+    a. ``bench`` at its own depth: ``value``, ``mfu``, ``hbm_gb_per_step``
+       and the other figures finite and positive;
+    b. ``tools.trace_flagship`` (2 + 10 steps, 3 traced): the traffic count,
+       the utilization and the trace's busy ms positive, its trace written;
+    c. ``tools.bench_horizon_remat``'s two t95 B 32 rows (2 + 5 steps) under
+       ``cudnn.deterministic``: both measured, their losses equal (at
+       phase 6's loss tolerance);
+    d. ``tools.bench_serving_rollout`` (10 end-to-end calls a precision):
+       both kernels within the rollout tolerance of the plain rollout, no
+       launch in bf16.
+    The rollout kernel launches 0 times in a-c.
+Each phase, and each part of phases 14, 15 and 16, prints its seconds on a line
 of its own; a line before the JSON lines lists every phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel (its
@@ -291,24 +307,26 @@ on the WaveEq paths in ``launches_wave``, on the chairs paths in
 SST paths in ``launches_sst``, with its B 16 plan and times, the streaming
 kernel's ``wave_*`` times at the WaveEq shape, both kernels' ``chairs_*``
 times at the chairs shape, and the cluster kernel's ``taxibj_*`` times at
-B 128 x 8, its launches on phase 14's paths in ``launches_ops`` and on
-phase 15's paths in ``launches_parallel``); the last is ``{"ok":
+B 128 x 8, its launches on phase 14's paths in ``launches_ops``, on
+phase 15's paths in ``launches_parallel`` and in phase 16's programs in
+``launches_bench``); the last is ``{"ok":
 true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import dataclasses
 import hashlib
 import importlib.util
+import io
 import itertools
 import json
 import os
 import signal
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -318,7 +336,15 @@ import numpy as np
 import torch
 
 from spatiotemporal_variable_separation_tpu_torch import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch import bench as port_bench
 from spatiotemporal_variable_separation_tpu_torch import checkpoint
+from spatiotemporal_variable_separation_tpu_torch.bench import (
+    card_peaks,
+    cuda_ms,
+    device_profile,
+    nvidia_smi,
+    step_flops,
+)
 from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
 from spatiotemporal_variable_separation_tpu_torch.cli import diagnose as cli_diagnose
 from spatiotemporal_variable_separation_tpu_torch.cli import gen_synthetic as cli_gen_synthetic
@@ -389,6 +415,12 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
 )
 from spatiotemporal_variable_separation_tpu_torch.ops.ssim import ssim_map, ssim_per_frame
 from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
+from spatiotemporal_variable_separation_tpu_torch.tools import (
+    bench_horizon_remat,
+    bench_serving_rollout,
+    trace_flagship,
+)
+from spatiotemporal_variable_separation_tpu_torch.tools.bench_serving_rollout import step_rel_err
 from spatiotemporal_variable_separation_tpu_torch.train import (
     TrainState,
     create_train_state,
@@ -417,13 +449,8 @@ ROLLOUT_REL_TOL = 1e-4
 # rollout on the CPU, mean 1.2e-7, max 5.3e-3, 8.5e-6 off by more than 1e-3.
 FRAME_MEAN_TOL = 1e-5
 FRAME_OFF_FRAC_TOL = 1e-4  # share of pixels allowed off by more than 1e-3
-
-# Published peaks (NVIDIA data sheets; f32 outside the tensor cores, HBM).
-PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12)}
-PEAK_SXM = (66.9e12, 3.35e12)
-# Dense bf16 tensor-core peaks, same data sheets (without sparsity).
-BF16_PEAKS = {"PCIe": 756e12, "NVL": 835e12}
-BF16_PEAK_SXM = 989e12
+# The published peaks of the H100 parts live in the port's bench module
+# (``card_peaks``).
 
 # -- phase 6: the train step on the card against the CPU ------------------
 TRAIN_CHECK_B, TRAIN_CHECK_T_RANDOM = 8, 7
@@ -446,10 +473,7 @@ TRAIN_GRAD_TOL = 0.1
 TRAIN_STATS_TOL = 1e-4
 
 # -- phase 7: the flagship train step --------------------------------------
-FLAGSHIP = dict(data="mnist", architecture="dcgan", code_size_s=128, code_size_t=20,
-                enc_hidden_size=64, dec_hidden_size=64, res_hidden_size=512, n_blocks=1,
-                nt_cond=5, nt_pred=10, offset=5, batch_size=128, precision="bf16", seed=0,
-                fused_loss=True)  # bench.py:72-80
+FLAGSHIP = dict(port_bench.FLAGSHIP)  # bench.py:72-80
 TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 40, 3, 20
 # The loss after TRAIN_STEPS steps on one fixed batch, against the first
 # step's: 0.0306 measured on an H100 (129.7 -> 3.97); 0.1 leaves 3x room
@@ -472,7 +496,9 @@ N_TEST_DIGITS = 1_000   # synthetic test digits: 500 sequences (the reference ha
 TEST_SEQ_LEN = 100      # make_test_set's default, the reference's
 EVAL_B = 16             # the eval CLIs' default batch
 ARCHIVE_CAP = 256       # the CLIs' archives: the first 16 batches
-T95_MAX_BATCHES = 16    # the 95-frame protocol on the checkpoint: 256 of 500 sequences
+# The 95-frame protocol on the checkpoint: 128 of 500 sequences (cut from 16
+# batches for phase 16's time, see PERF.md section 4).
+T95_MAX_BATCHES = 8
 # The f32 bundle's runs, cut to these batches; the first 4 batches archived.
 BUNDLE_MAX_BATCHES = {"mnist_t10": 20, "mnist_swap_t10": 10, "mnist_t95": 8}
 BUNDLE_ARCHIVE_CAP = 64
@@ -511,20 +537,6 @@ def reset_launch_counts() -> None:
     mlp_resnet_rollout.variant_launches = dict.fromkeys(mlp_resnet_rollout.variant_launches, 0)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def step_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
-    """max_k max|out_k - ref_k| / max|ref_k| over steps k."""
-    diff = (out.double() - ref.double()).abs().amax(dim=(1, 2))
-    scale = ref.double().abs().amax(dim=(1, 2)).clamp_min(1e-30)
-    return float((diff / scale).max())
-
-
 def card_plan(batch: int, code: int, hidden: int, n_blocks: int, **kw):
     """``rollout_plan`` with the card's own count of streaming clusters that
     fit at once, as ``mlp_resnet_rollout`` plans a call itself."""
@@ -540,23 +552,6 @@ def plan_text(plan) -> str:
         text += (f", {STREAM_STAGES} ring stages, {plan.waves} wave(s), W1/biases/W3 "
                  f"{'resident' if plan.resident else 'from L2'}")
     return text
-
-
-def cuda_ms(fn, reps: int = 15, inner: int = 10) -> float:
-    """Median device time of one ``fn()`` call, by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
 
 
 def addmm_loop(t0, params, n_steps, out, h1, h2, res):
@@ -722,14 +717,8 @@ def train_step_card_vs_cpu(dev, cfg=None, seq=None, what: str = "Moving MNIST DC
 def time_train_steps(state, step, cond, target) -> float:
     """Mean ms of one train step over TIMED_STEPS after WARMUP_STEPS, fenced
     by torch.cuda.synchronize()."""
-    for _ in range(WARMUP_STEPS):
-        step(state, cond, target)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        step(state, cond, target)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - start) / TIMED_STEPS * 1e3
+    return port_bench.time_steps(lambda i: step(state, cond, target), WARMUP_STEPS,
+                                 TIMED_STEPS, cond.device)[0]
 
 
 def split_train_step(state, cfg, cond, target, reps: int = 10) -> dict:
@@ -759,45 +748,15 @@ def profile_train_steps(state, step, cond, target, n: int = 3) -> dict:
     """A torch.profiler trace of ``n`` train steps: the busiest device
     kernels and the device's busy share of the wall time.  Returns a step's
     wall and busy ms, its idle share and its device kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for _ in range(n):
-            step(state, cond, target)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    # The optimizer's user annotation shows on the device timeline too; it
-    # spans Adam's kernels and is not one.
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith("Optimizer.")),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
+    prof = device_profile(lambda: step(state, cond, target), n)
+    wall_ms, busy_ms = prof["wall_ms"] * n, prof["busy_ms"] * n
     print(f"  traced {n} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}; "
-          f"{launches / n:.0f} device kernels a step")
-    for e in kernels[:12]:
+          f"({busy_ms / wall_ms:.1%}), idle {prof['idle']:.1%}; "
+          f"{prof['kernels']:.0f} device kernels a step")
+    for e in prof["events"][:12]:
         print(f"    kernel {e.self_device_time_total / 1e3 / n:9.3f} ms a step "
               f"({e.self_device_time_total / 1e3 / busy_ms:.1%}) x{e.count // n:<5d} {e.key[:90]}")
-    return {"wall_ms": wall_ms / n, "busy_ms": busy_ms / n, "idle": 1 - busy_ms / wall_ms,
-            "kernels": launches / n}
-
-
-def step_flops(state, cfg, cond, target) -> float:
-    """FLOPs of one train step's forward and backward, counted op by op
-    (convolutions and matrix products) by torch.utils.flop_counter."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    model = copy.deepcopy(state.model)
-    with FlopCounterMode(display=False) as counter:
-        loss, _ = model.compute_losses(cond, target, cfg.nt_cond + 2, cfg.offset, cfg.lamb_ae,
-                                       cfg.lamb_s, cfg.effective_lamb_t, cfg.lamb_pred,
-                                       cfg.average_tloss)
-        loss.backward()
-    return float(counter.get_total_flops())
+    return {k: prof[k] for k in ("wall_ms", "busy_ms", "idle", "kernels")}
 
 
 def flagship_train(dev, smi: str, card: str) -> float:
@@ -854,8 +813,8 @@ def flagship_train(dev, smi: str, card: str) -> float:
     print("  one step by CUDA events (median of 10): " + ", ".join(
         f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()))
     profile_train_steps(state, step, cond, target)
-    flops = step_flops(state, cfg, cond, target)
-    peak = next((v for k, v in BF16_PEAKS.items() if k in card), BF16_PEAK_SXM)
+    flops = step_flops(state.model, cfg, cond, target)
+    peak = card_peaks(card)[2]
     print(f"  FLOPs of one step (forward and backward, torch.utils.flop_counter): "
           f"{flops / 1e12:.4f} TFLOP = {flops / cfg.batch_size / 3 / 1e9:.3f} GFLOP forward a "
           f"sample if backward is twice forward; {flops / bf16_ms / 1e9:.1f} TFLOP/s, "
@@ -1409,6 +1368,34 @@ def eval_clis(xp: str, data_dir: str) -> dict:
     return runs
 
 
+def t95_ssim_by_step(dev, xp: str) -> None:
+    """Phase 9c: the SSIM of each step of the bf16 checkpoint's t95 forecast
+    (the CLI's archive: its first ARCHIVE_CAP sequences, as uint8) beside the
+    step's share of predicted pixels at 0 or 1, and their correlation; the
+    archive's mean SSIM beside the CLI's, which scored the float frames."""
+    with np.load(os.path.join(xp, "predictions.npz")) as z:
+        pred = z["predictions"]
+    with np.load(os.path.join(xp, "gt.npz")) as z:
+        gt = z["gt"]
+    saturated = ((pred == 0) | (pred == 255)).mean(axis=(0, 2, 3, 4))
+    with torch.inference_mode():
+        ssim = ssim_per_frame(torch.from_numpy(pred).to(dev).float() / 255,
+                              torch.from_numpy(gt).to(dev).float() / 255)
+    by_step = ssim.mean(dim=(0, 2)).cpu().numpy()
+    record = json.load(open(os.path.join(xp, "evals.json")))["mnist_t95"]
+    print(f"t95 forecast of the bf16 checkpoint, {pred.shape[0]} archived sequences x "
+          f"{pred.shape[1]} steps: mean SSIM of the uint8 archive {by_step.mean():.4f} (the "
+          f"CLI's, of the float frames: {record['ssim']:.4f})")
+    print("  step: SSIM, share of predicted pixels at 0 or 1 -- " + ", ".join(
+        f"{k + 1}: {by_step[k]:.4f}, {saturated[k]:.4f}"
+        for k in sorted({0, 1, 2, 4, 9, *range(19, len(by_step), 10), len(by_step) - 1})))
+    corr = float(np.corrcoef(by_step, saturated)[0, 1])
+    print(f"  correlation of the per-step SSIM with the saturated share: {corr:.4f}; SSIM "
+          f"first 10 steps {by_step[:10].mean():.4f}, last 10 {by_step[-10:].mean():.4f}; "
+          f"saturated first 10 {saturated[:10].mean():.4f}, last 10 {saturated[-10:].mean():.4f}")
+    check(bool(np.isfinite(by_step).all()), "non-finite t95 SSIM by step")
+
+
 def eval_f32_bundle(model, cfg, data_dir: str, work: str) -> dict:
     """Phase 9c, the f32 bundle: the same protocols through
     ``evaluate(model_bundle=...)`` on the full-width seed-0 model; one
@@ -1579,6 +1566,7 @@ def evaluation(dev, smi: str, model, cfg, xp: str, data_dir: str, work: str) -> 
     b16 = evaluator_card_vs_cpu(dev, model, test_set)
     del test_set
     runs = eval_clis(xp, data_dir)
+    t95_ssim_by_step(dev, xp)
     bundle = eval_f32_bundle(model, cfg, data_dir, work)
     eval_resume(xp, data_dir, eval_mnist.evaluate, "mnist_t10", "results.npz", nt_pred=10,
                 max_batches=RESUME_BATCHES, save_arrays=False, device=dev)
@@ -2062,7 +2050,7 @@ def phase10_only(dev=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"nvidia-smi: {nvidia_smi()}")
     card = torch.cuda.get_device_name(0)
-    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    flops_peak, bw_peak = card_peaks(card)[:2]
     _build.build()
     with tempfile.TemporaryDirectory() as work:
         wave_phase(dev, work, flops_peak, bw_peak)
@@ -2342,7 +2330,7 @@ def phase11_only(dev=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"nvidia-smi: {nvidia_smi()}")
     card = torch.cuda.get_device_name(0)
-    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    flops_peak, bw_peak = card_peaks(card)[:2]
     _build.build()
     check_kernel_cases(chairs_kernel_cases(dev))
     with tempfile.TemporaryDirectory() as work:
@@ -2361,10 +2349,12 @@ TAXIBJ_DAYS = 120           # gen_synthetic's default days a year: 4 x 5,760 fra
 SST_ZONES, SST_DAYS = list(range(1, 30)), 1600   # gen_synthetic's defaults (~1.5 GB f64)
 SST_TEST_ZONES = list(range(17, 21))
 SST_WIDE_ZONE = 256         # the full-basin stretch grid, one forward
-CORPUS_EPOCHS, CORPUS_STEPS = 2, 20
+# 12c/13c's CLI runs (cut from 2 x 20 for phase 16's time, see PERF.md
+# section 4).
+CORPUS_EPOCHS, CORPUS_STEPS = 2, 10
 CORPUS_TIMED_STEPS = 10
 CORPUS_RESUME_STEPS, CORPUS_RESUME_STOP_AFTER = 6, 8   # 2 epochs x 6 steps, stopped after 8
-# The last logged loss (step 40) against the first (step 5), a fresh batch
+# The last logged loss (step 20) against the first (step 5), a fresh batch
 # every step: it must fall.
 CORPUS_LOSS_FALL = 1.0
 TAXIBJ_EVAL_B, SST_EVAL_B = 128, 64   # the eval CLIs' default batches
@@ -2477,7 +2467,7 @@ def corpus_sampler(dev, label: str, cfg, host, gen, make_s: float, build_s: floa
 def corpus_train(dev, label: str, recipe: list, gen, work: str) -> tuple:
     """Phases 12c and 13c: the recipe through ``run_training`` with the
     sampler over the stand-in held in memory (the train CLI reads the
-    reference's HDF5 files, and h5py is not on every machine), 2 epochs x 20
+    reference's HDF5 files, and h5py is not on every machine), 2 epochs x 10
     steps: the loss falls, 0 launches, samples/s, the fused step's ms, a
     profiler trace; then a mid-epoch resume, bitwise.  Returns (the
     experiment directory, the profiler's figures)."""
@@ -2740,7 +2730,7 @@ def phase12_13_only(dev=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"nvidia-smi: {nvidia_smi()}")
     card = torch.cuda.get_device_name(0)
-    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    flops_peak, bw_peak = card_peaks(card)[:2]
     _build.build()
     with tempfile.TemporaryDirectory() as work:
         taxibj_phase(dev, work, flops_peak, bw_peak)
@@ -2761,7 +2751,7 @@ PROBE_B, PROBE_STEPS = 32, 20           # the diagnose CLI's defaults
 # off): the same f32 encoders and rollout summed in another order, ~1e-6.
 PROBE_RTOL = 1e-4
 MONITOR_B, MONITOR_EPOCHS, MONITOR_STEPS = 32, 2, 3
-SUPERVISED_EPOCHS, SUPERVISED_STEPS = 2, 20
+SUPERVISED_EPOCHS, SUPERVISED_STEPS = 2, 10   # cut from 2 x 20 (PERF.md section 4)
 # 14d's stop: the supervisor's deadline is an hour away on its clock, and the
 # clock jumps past it once the child prints this step's loss line, so the
 # SIGTERM lands at that step or just after it, however fast the host starts.
@@ -3651,6 +3641,108 @@ def phase15_only(dev=None) -> None:
         make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
         print(json.dumps(parallel_phase(dev, work, data_dir, model, cfg, bf16_ms)))
 
+# -- phase 16: the measurement programs ------------------------------------------
+# The bench runs at its own depth (5 + 50 steps, and the fused datagen step
+# the same).  The others are cut for time (each runs at full depth as a
+# command of its own): the remat tool's two B 32 rows at 2 + 5 steps
+# (of 3 + 20), the trace tool at 2 + 10 steps (of 5 + 50) with 3 traced,
+# the serving tool at 10 end-to-end calls and 5 back to back (of 30 and 10).
+REMAT_ARGV = ["--rows", "t95_b32", "t95_b32_remat", "--warmup", "2", "--steps", "5"]
+TRACE_ARGV = ["--warmup", "2", "--steps", "10"]
+SERVING_ARGV = ["--iters", "10", "--amortized_k", "5"]
+
+
+def run_program(label: str, main, argv: list) -> tuple:
+    """Phase 16: a program's ``main(argv)`` in this process, its standard
+    output passed through.  Returns (its last line, parsed as JSON; the
+    rollout-kernel launches it made, by variant)."""
+    reset_launch_counts()
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    text = out.getvalue()
+    print(text, end="")
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    print(f"phase 16 {label}: {time.perf_counter() - t:.1f} s, rollout kernel launches "
+          f"{launches}")
+    return json.loads(text.strip().splitlines()[-1]), launches
+
+
+def positive(line: dict, keys, what: str) -> None:
+    for k in keys:
+        check(line[k] is not None and np.isfinite(line[k]) and line[k] > 0,
+              f"{what}: {k} is {line[k]}, not a finite positive number")
+
+
+def measurement_programs(dev, work: str) -> dict:
+    """Phase 16: the port's bench and its three tools, each through its
+    ``main``; returns each one's rollout-kernel launches by variant."""
+    t_phase = time.perf_counter()
+    launches = {}
+    line, launches["bench"] = run_program("a, bench", port_bench.main, [])
+    positive(line, ("value", "step_ms", "mfu", "hbm_gb_per_step", "hbm_costmodel_bw_ratio",
+                    "fused_datagen_samples_per_sec_per_chip", "device_busy_ms",
+                    "kernels_per_step", "tflops_per_step"), "bench")
+    check(np.isfinite(line["final_loss"]) and len(line["step_ms_blocks"]) == 5, "bench line")
+    spread = max(line["step_ms_blocks"]) / min(line["step_ms_blocks"]) - 1
+    print(f"  bench: {line['value']:.1f} samples/s, {line['step_ms']:.3f} ms/step (blocks of "
+          f"10: {', '.join(f'{v:.3f}' for v in line['step_ms_blocks'])}; spread {spread:.1%}), "
+          f"mfu {line['mfu']:.4f}, {line['hbm_gb_per_step']:.3f} GB a step, device busy "
+          f"{line['device_busy_ms']:.3f} ms of {line['kernels_per_step']:.0f} kernels")
+
+    trace_dir = os.path.join(work, "trace")
+    line, launches["trace"] = run_program("b, trace_flagship", trace_flagship.main,
+                                          ["--trace_dir", trace_dir, *TRACE_ARGV])
+    positive(line, ("step_ms", "static_hbm_gb_per_step", "static_bw_utilization", "n_ops",
+                    "trace_busy_ms", "trace_kernels"), "trace_flagship")
+    size = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+    print(f"  trace_flagship: Chrome trace of 3 steps, {size / 1e6:.1f} MB")
+
+    # cudnn.deterministic: remat recomputes the same kernels, so the two
+    # rows' losses are then bitwise equal.
+    torch.backends.cudnn.deterministic = True
+    try:
+        rows, launches["remat"] = run_program("c, bench_horizon_remat",
+                                              bench_horizon_remat.main, REMAT_ARGV)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    plain, remat = rows["t95_b32"], rows["t95_b32_remat"]
+    check("oom" not in plain and "oom" not in remat, "a B 32 remat row ran out of memory")
+    rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    print(f"  remat rows (cudnn.deterministic): loss {plain['loss']!r} without, "
+          f"{remat['loss']!r} with remat, relative {rel:.2e} (bitwise: {rel == 0}; "
+          f"tolerance {TRAIN_LOSS_RTOL:g}); peak {plain['peak_gb']:.2f} against "
+          f"{remat['peak_gb']:.2f} GB")
+    check(rel <= TRAIN_LOSS_RTOL, "the remat rows' losses disagree")
+
+    line, launches["serving"] = run_program("d, bench_serving_rollout",
+                                            bench_serving_rollout.main, SERVING_ARGV)
+    for v, err in line["kernel_max_step_rel_err"].items():
+        print(f"  serving tool, {v} kernel against the plain rollout: step-relative {err:.3e} "
+              f"(tolerance {ROLLOUT_REL_TOL:g})")
+        check(err <= ROLLOUT_REL_TOL, f"the serving tool's {v} kernel disagrees with plain")
+    check(line["serve_launches"]["bf16"] == {"cluster": 0, "stream": 0}
+          and line["serve_launches"]["f32"]["cluster"] > 0
+          and launches["serving"]["stream"] > 0, "the serving tool's launches")
+    for k in ("bench", "trace", "remat"):
+        check(launches[k] == {"cluster": 0, "stream": 0}, f"{k} launched the rollout kernel")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase16_only(dev=None) -> None:
+    """Phase 16 alone, a quicker run on the card than the whole script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase16_only()"
+    """
+    dev = torch.device("cuda:0") if dev is None else dev
+    print(f"nvidia-smi: {nvidia_smi()}")
+    _build.build()
+    with tempfile.TemporaryDirectory() as work:
+        print(json.dumps(measurement_programs(dev, work)))
+
+
 def check_kernel_cases(cases: dict) -> dict:
     """Phase 3: each case through the kernel its plan names (the serving,
     chairs and ragged-slice cases also through the streaming kernel,
@@ -3731,7 +3823,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    flops_peak, bw_peak = next((v for k, v in PEAKS.items() if k in card), PEAK_SXM)
+    flops_peak, bw_peak = card_peaks(card)[:2]
     phase_done(1)
 
     # -- 2. build ------------------------------------------------------
@@ -3977,6 +4069,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         par = parallel_phase(dev, work, data_dir, model, cfg, bf16_ms)
     phase_done(15, quiet=True)
+
+    # -- 16. the measurement programs (each part prints its own seconds) ------------
+    with tempfile.TemporaryDirectory() as work:
+        programs = measurement_programs(dev, work)
+    phase_done(16, quiet=True)
     work89.cleanup()
     print("phase seconds: " + ", ".join(f"{k} {v}" for k, v in seconds.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
@@ -4073,6 +4170,13 @@ def main() -> None:
                 par["test_wave"] if v == "stream" else 0,
             "data and tensor parallel training, world-1 NCCL and two ranks over gloo "
             "(15a-c)": par["train"][v]},
+        "launches_bench": {
+            "bench: the bf16 flagship train step and the fused datagen step (16a)":
+                programs["bench"][v],
+            "tools.trace_flagship (16b)": programs["trace"][v],
+            "tools.bench_horizon_remat, the t95 B 32 rows (16c)": programs["remat"][v],
+            f"tools.bench_serving_rollout, B {B} x {N_FORECAST}: f32 and mixed serving, "
+            "the kernels timed (16d)": programs["serving"][v]},
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))
