@@ -9,7 +9,8 @@ trains both recipes and scores them; then trains the ``--no_s`` ablation,
 probes the rollout's stability (``diagnose``, ``--monitor_stability``) and
 drives the operations tooling; then trains data- and tensor-parallel and
 evaluates and serves over a mesh, as far as one card can show; then runs
-the port's benchmark and measurement tools.
+the port's benchmark and measurement tools; then imports a reference
+experiment, serves it and exports it back.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -297,6 +298,21 @@ result line is printed):
        both kernels within the rollout tolerance of the plain rollout, no
        launch in bf16.
     The rollout kernel launches 0 times in a-c.
+17. a migrated reference experiment, the flagship at full width in f32:
+    a. a stand-in of the reference's experiment layout (its code is not on
+       the card machine): four pickles of plain ``torch.nn`` layers in the
+       reference's order holding the seed-0 weights, with random BatchNorm
+       statistics, and a ``params.json`` without precision;
+    b. ``cli.import_torch`` in this process: the imported weights bitwise
+       the stand-in's, f32 pinned, no launch;
+    c. ``load_for_eval`` on the card and ``Forecaster`` at B 64 x 100: one
+       cluster-kernel launch a request, the forecast within phase 5's
+       tolerances of the same experiment's CPU forecast (the plain rollout,
+       the first windows) and its T codes within the rollout tolerance;
+    d. ``cli.export_torch`` (the stand-in builder in place of the
+       reference's factory) and the export imported again: both bitwise;
+    e. ``enable_compilation_cache`` resolves the root phase 2 built into,
+       and every loaded kernel came from there (no build in this phase).
 Each phase, and each part of phases 14, 15 and 16, prints its seconds on a line
 of its own; a line before the JSON lines lists every phase's seconds.
 
@@ -308,13 +324,14 @@ SST paths in ``launches_sst``, with its B 16 plan and times, the streaming
 kernel's ``wave_*`` times at the WaveEq shape, both kernels' ``chairs_*``
 times at the chairs shape, and the cluster kernel's ``taxibj_*`` times at
 B 128 x 8, its launches on phase 14's paths in ``launches_ops``, on
-phase 15's paths in ``launches_parallel`` and in phase 16's programs in
-``launches_bench``); the last is ``{"ok":
+phase 15's paths in ``launches_parallel``, in phase 16's programs in
+``launches_bench`` and on phase 17's in ``launches_import``); the last is ``{"ok":
 true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import csv
@@ -347,7 +364,9 @@ from spatiotemporal_variable_separation_tpu_torch.bench import (
 )
 from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
 from spatiotemporal_variable_separation_tpu_torch.cli import diagnose as cli_diagnose
+from spatiotemporal_variable_separation_tpu_torch.cli import export_torch as cli_export_torch
 from spatiotemporal_variable_separation_tpu_torch.cli import gen_synthetic as cli_gen_synthetic
+from spatiotemporal_variable_separation_tpu_torch.cli import import_torch as cli_import_torch
 from spatiotemporal_variable_separation_tpu_torch.cli import main as cli_main
 from spatiotemporal_variable_separation_tpu_torch.cli import make_mnist_test as cli_make_mnist_test
 from spatiotemporal_variable_separation_tpu_torch.cli import summarize as cli_summarize
@@ -431,6 +450,16 @@ from spatiotemporal_variable_separation_tpu_torch.train import (
 )
 from spatiotemporal_variable_separation_tpu_torch.train.loop import run_training
 from spatiotemporal_variable_separation_tpu_torch.train.step import DATA_SALT, step_seed
+from spatiotemporal_variable_separation_tpu_torch.utils import compile_cache
+from spatiotemporal_variable_separation_tpu_torch.utils import export as export_mod
+from spatiotemporal_variable_separation_tpu_torch.utils.compile_cache import (
+    enable_compilation_cache,
+)
+from spatiotemporal_variable_separation_tpu_torch.utils.transplant import (
+    REFERENCE_FILES,
+    reference_units,
+    unit_tensors,
+)
 
 B, N_FORECAST = 64, 100
 REQUESTS = (64, 17, 1)  # windows per request: full, padded, single
@@ -3652,20 +3681,25 @@ TRACE_ARGV = ["--warmup", "2", "--steps", "10"]
 SERVING_ARGV = ["--iters", "10", "--amortized_k", "5"]
 
 
-def run_program(label: str, main, argv: list) -> tuple:
-    """Phase 16: a program's ``main(argv)`` in this process, its standard
-    output passed through.  Returns (its last line, parsed as JSON; the
-    rollout-kernel launches it made, by variant)."""
+def run_main(main, argv: list) -> tuple:
+    """A program's ``main(argv)`` in this process, its standard output
+    passed through.  Returns (its output, seconds, the rollout-kernel
+    launches it made by variant)."""
     reset_launch_counts()
     t = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         main(argv)
-    text = out.getvalue()
-    print(text, end="")
-    launches = dict(mlp_resnet_rollout.variant_launches)
-    print(f"phase 16 {label}: {time.perf_counter() - t:.1f} s, rollout kernel launches "
-          f"{launches}")
+    seconds = time.perf_counter() - t
+    print(out.getvalue(), end="")
+    return out.getvalue(), seconds, dict(mlp_resnet_rollout.variant_launches)
+
+
+def run_program(label: str, main, argv: list) -> tuple:
+    """Phase 16: ``run_main``.  Returns (the program's last line, parsed as
+    JSON; its rollout-kernel launches by variant)."""
+    text, seconds, launches = run_main(main, argv)
+    print(f"phase 16 {label}: {seconds:.1f} s, rollout kernel launches {launches}")
     return json.loads(text.strip().splitlines()[-1]), launches
 
 
@@ -3741,6 +3775,200 @@ def phase16_only(dev=None) -> None:
     _build.build()
     with tempfile.TemporaryDirectory() as work:
         print(json.dumps(measurement_programs(dev, work)))
+
+
+# -- phase 17: a migrated reference experiment on the card ----------------------
+# The flagship at its full width in f32 (bench.py's config), imported from a
+# stand-in of the reference's experiment layout.  The CPU's forecast, held
+# against the card's first rows, covers these windows (all 100 steps; 4
+# windows took 0.42 s on the card machine's host).
+MIGRATED_CPU_WINDOWS = 16
+
+
+def stand_in_reference(model, rng: np.random.Generator) -> dict:
+    """17a: the reference's four modules as pickles of plain ``torch.nn``
+    layers, one for each parameterized layer of ``model``'s module in its
+    registration order (the reference's own order), holding ``model``'s
+    weights, with BatchNorm statistics drawn from ``rng`` in the JAX
+    package's ranges (``tests/test_import_torch.py:43-51``)."""
+    modules = {}
+    for key, _ in REFERENCE_FILES:
+        layers = collections.OrderedDict()
+        for i, (_, kind, m) in enumerate(reference_units(getattr(model, key))):
+            if kind == "dense":
+                layer = torch.nn.Linear(m.in_features, m.out_features)
+            elif kind == "bn":
+                layer = torch.nn.BatchNorm2d(m.num_features)
+                n = m.num_features
+                layer.running_mean.copy_(torch.from_numpy(
+                    rng.standard_normal(n).astype(np.float32) * 0.3))
+                layer.running_var.copy_(torch.from_numpy(
+                    rng.random(n).astype(np.float32) * 1.5 + 0.25))
+            else:
+                cls = torch.nn.Conv2d if kind == "conv" else torch.nn.ConvTranspose2d
+                layer = cls(m.in_channels, m.out_channels, m.kernel_size, m.stride, m.padding)
+            with torch.no_grad():
+                layer.weight.copy_(m.weight)
+                layer.bias.copy_(m.bias)
+            layers[str(i)] = layer
+        modules[key] = torch.nn.Sequential(layers).eval()
+    return modules
+
+
+def same_tensors(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def run_cli(label: str, main, argv: list) -> tuple:
+    """Phase 17: ``run_main``.  Returns (seconds, rollout-kernel launches
+    by variant)."""
+    _, seconds, launches = run_main(main, argv)
+    print(f"  {label}: {seconds:.2f} s, rollout kernel launches {launches}")
+    return seconds, launches
+
+
+def migrated_experiment(dev, work: str, libs: dict) -> dict:
+    """Phase 17: a reference experiment at the flagship's full width, made
+    as a stand-in (17a), imported through ``cli.import_torch`` (17b), served
+    on the card through ``Forecaster`` and held against its CPU forecast
+    (17c), exported and imported again (17d), with the kernels loaded from
+    the root ``enable_compilation_cache`` resolves (17e).  Returns the
+    cluster kernel's launches while serving it."""
+    t_phase = time.perf_counter()
+    cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
+    seed0 = build_separable_network(cfg, torch.device("cpu"), torch.Generator().manual_seed(0))
+    modules = stand_in_reference(seed0, np.random.default_rng(17))
+    ref = os.path.join(work, "reference_xp")
+    os.makedirs(ref)
+    params = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "precision"}
+    with open(os.path.join(ref, "params.json"), "w") as f:
+        json.dump(params, f)
+    for key, stem in REFERENCE_FILES:
+        torch.save(modules[key], os.path.join(ref, f"{stem}.pt"))
+    ref_mb = sum(os.path.getsize(os.path.join(ref, f"{stem}.pt"))
+                 for _, stem in REFERENCE_FILES) / 1e6
+    print(f"phase 17a: stand-in reference experiment, {cfg.code_size_s}/{cfg.code_size_t} "
+          f"codes, nf {cfg.enc_hidden_size}, MLP-ResNet {cfg.n_blocks} block H "
+          f"{cfg.res_hidden_size}: four pickles of plain torch.nn layers, {ref_mb:.1f} MB, "
+          f"params.json without precision")
+
+    # -- 17b. import ----------------------------------------------------------
+    xp = os.path.join(work, "migrated_xp")
+    import_s, launches_import = run_cli("phase 17b, python -m ...cli.import_torch",
+                                        cli_import_torch.main,
+                                        ["--ref_xp_dir", ref, "--xp_dir", xp])
+    check(launches_import == {"cluster": 0, "stream": 0}, "the import launched the rollout kernel")
+    ckpt_mb = os.path.getsize(os.path.join(xp, "checkpoints", "final", "train_state.pt")) / 1e6
+    t = time.perf_counter()
+    cpu_model, cpu_cfg = load_for_eval(xp, device="cpu")
+    cpu_load_s = time.perf_counter() - t
+    check(cpu_cfg.precision == "f32", "the import did not pin f32")
+    for key, _ in REFERENCE_FILES:
+        check(same_tensors(unit_tensors(getattr(cpu_model, key)), unit_tensors(modules[key])),
+              f"imported {key} differs from the stand-in")
+    print(f"phase 17b: imported weights and BatchNorm statistics bitwise the stand-in's; "
+          f"checkpoint {ckpt_mb:.1f} MB, loaded on the CPU in {cpu_load_s:.2f} s")
+
+    # -- 17c. serve it on the card --------------------------------------------
+    t = time.perf_counter()
+    model, _ = load_for_eval(xp, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    fc = Forecaster(model, cpu_cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
+    cond = np.random.default_rng(17).random((B, cfg.nt_cond) + cfg.frame_shape,
+                                            dtype=np.float32)
+    reset_launch_counts()
+    answers = {b: fc.predict(cond[:b]) for b in REQUESTS}
+    served = dict(mlp_resnet_rollout.variant_launches)
+    print(f"phase 17c: load_for_eval on the card {load_s:.2f} s; requests of {list(answers)} "
+          f"windows, rollout kernel launches {served}")
+    check(served == {"cluster": len(answers), "stream": 0},
+          "one cluster-kernel launch per request of the migrated experiment")
+    for b, a in answers.items():
+        check(a.shape == (b, N_FORECAST) + cfg.frame_shape and bool(np.isfinite(a).all())
+              and bool(((a >= 0) & (a <= 1)).all()), f"migrated forecast for {b}")
+    n_cpu = MIGRATED_CPU_WINDOWS
+    t = time.perf_counter()
+    cpu_frames = Forecaster(cpu_model, cpu_cfg, n_cpu, N_FORECAST, device="cpu").predict(
+        cond[:n_cpu])
+    cpu_s = time.perf_counter() - t
+    with torch.inference_mode():
+        t_card = model.get_forecast(torch.from_numpy(cond[:n_cpu]).to(dev), N_FORECAST)[1]
+        t_cpu = cpu_model.get_forecast(torch.from_numpy(cond[:n_cpu]), N_FORECAST)[1]
+    rel = step_rel_err(t_card.transpose(0, 1).cpu(), t_cpu.transpose(0, 1))
+    print(f"  T codes, card kernel against the CPU's plain rollout ({n_cpu} windows): "
+          f"step-relative {rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}); the CPU forecast "
+          f"took {cpu_s:.2f} s")
+    check(rel <= ROLLOUT_REL_TOL, "the migrated experiment's T codes disagree card vs CPU")
+    check_frames(answers[B][:n_cpu], cpu_frames,
+                 f"migrated forecast on the card vs its CPU forecast ({n_cpu} windows)")
+
+    # -- 17d. export, and import again ----------------------------------------
+    fresh = stand_in_reference(build_separable_network(
+        cfg, torch.device("cpu"), torch.Generator().manual_seed(1)), np.random.default_rng(18))
+    saved_builder = export_mod.build_reference_modules
+    # The reference's factory is not on the card machine: the stand-in builder
+    # takes its place, with other weights, so nothing of 17a survives in it.
+    export_mod.build_reference_modules = lambda c, reference_root=None: fresh
+    try:
+        out = os.path.join(work, "exported_xp")
+        export_s, launches_export = run_cli("phase 17d, python -m ...cli.export_torch",
+                                            cli_export_torch.main,
+                                            ["--xp_dir", xp, "--ref_xp_dir", out])
+    finally:
+        export_mod.build_reference_modules = saved_builder
+    check(launches_export == {"cluster": 0, "stream": 0},
+          "the export launched the rollout kernel")
+    exported = {key: torch.load(os.path.join(out, f"{stem}.pt"), weights_only=False)
+                for key, stem in REFERENCE_FILES}
+    for key, _ in REFERENCE_FILES:
+        check(not exported[key].training and same_tensors(unit_tensors(exported[key]),
+                                                          unit_tensors(modules[key])),
+              f"exported {key} differs from the stand-in it was imported from")
+    back = os.path.join(work, "reimported_xp")
+    reimport_s, reimport_launches = run_cli("phase 17d, the export through cli.import_torch",
+                                            cli_import_torch.main,
+                                            ["--ref_xp_dir", out, "--xp_dir", back])
+    check(reimport_launches == {"cluster": 0, "stream": 0},
+          "the second import launched the rollout kernel")
+    converters = {v: launches_import[v] + launches_export[v] + reimport_launches[v]
+                  for v in ("cluster", "stream")}
+    again, _ = load_for_eval(back, device="cpu")
+    check(same_tensors(list(again.state_dict().values()), list(cpu_model.state_dict().values())),
+          "export then import is not the identity")
+    print(f"phase 17d: exported {out} and imported it again ({reimport_s:.2f} s): bitwise the "
+          f"first import")
+
+    # -- 17e. the kernels' build root --------------------------------------------
+    resolved = enable_compilation_cache()
+    root = compile_cache.build_root()
+    loaded = {name: os.path.realpath(lib._name) for name, lib in _build._LOADED.items()}
+    print(f"phase 17e: enable_compilation_cache() -> {resolved}; build root {root}; "
+          f"libraries loaded from {sorted(loaded.values())}")
+    for name, lib in libs.items():
+        check(lib.parent.parent == root and _build.library_path(name) == lib,
+              f"{name}: phase 2 built {lib}, outside the resolved root {root}")
+    check(loaded and all(path == os.path.realpath(libs[name]) for name, path in loaded.items()),
+          "a kernel was loaded from outside phase 2's libraries")
+    print(f"phase 17: import {import_s:.2f} s, export {export_s:.2f} s, load on the card "
+          f"{load_s:.2f} s, checkpoint {ckpt_mb:.1f} MB; {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": served, "converter_launches": converters,
+            "import_s": import_s, "export_s": export_s,
+            "load_s": load_s, "checkpoint_mb": ckpt_mb}
+
+
+def phase17_only(dev=None) -> None:
+    """Phase 17 alone, a quicker run on the card than the whole script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase17_only()"
+    """
+    dev = torch.device("cuda:0") if dev is None else dev
+    print(f"nvidia-smi: {nvidia_smi()}")
+    torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = _build.build()
+    with tempfile.TemporaryDirectory() as work:
+        print(json.dumps(migrated_experiment(dev, work, libs)))
 
 
 def check_kernel_cases(cases: dict) -> dict:
@@ -4074,9 +4302,15 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         programs = measurement_programs(dev, work)
     phase_done(16, quiet=True)
+
+    # -- 17. a migrated reference experiment (prints its own seconds) -----------------
+    with tempfile.TemporaryDirectory() as work:
+        migrated = migrated_experiment(dev, work, libs)
+    phase_done(17, quiet=True)
     work89.cleanup()
     print("phase seconds: " + ", ".join(f"{k} {v}" for k, v in seconds.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
+    print(f"nvidia-smi: {smi}")  # again, beside the result lines at the end of the output
 
     def chairs_keys(v: str) -> dict:
         rel = max([errors[label, v][0] for label in chairs_labels]
@@ -4177,6 +4411,11 @@ def main() -> None:
             "tools.bench_horizon_remat, the t95 B 32 rows (16c)": programs["remat"][v],
             f"tools.bench_serving_rollout, B {B} x {N_FORECAST}: f32 and mixed serving, "
             "the kernels timed (16d)": programs["serving"][v]},
+        "launches_import": {
+            f"the migrated flagship (import_torch), Forecaster B {B} x {N_FORECAST}, "
+            f"{len(REQUESTS)} requests (17c)": migrated["launches"][v],
+            "import_torch, export_torch and the second import (17b, 17d)":
+                migrated["converter_launches"][v]},
     } for v in ("cluster", "stream")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

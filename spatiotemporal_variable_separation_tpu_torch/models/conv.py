@@ -117,12 +117,16 @@ class DCGAN64Decoder(NCHWDecoder):
     """Mirror of :class:`DCGAN64Encoder` with transposed convs.
 
     With ``skip=True`` the encoder's stage outputs (reversed) are channel-
-    concatenated before each stage (``conv.py:226-229``), doubling input
-    widths (``coef=2``, ``conv.py:257``).
+    concatenated before each stage (``conv.py:226-229``).  They are as wide
+    as the *encoder*'s stages, ``skip_nf`` (its ``nf``, default this
+    decoder's ``nf``), so each stage takes ``stage width + skip width``
+    channels, as flax sizes it from what it receives (JAX ``conv.py:151-156``);
+    the reference's ``coef=2`` (``conv.py:257``) is the equal-width case.
     """
 
     def __init__(self, nz: int, nc: int, nf: int, *, generator: torch.Generator,
-                 skip: bool = False, last_activation: Optional[str] = None,
+                 skip: bool = False, skip_nf: Optional[int] = None,
+                 last_activation: Optional[str] = None,
                  mixing: str = "concat", init_type: str = "normal",
                  init_gain: float = 0.02, dtype: torch.dtype = torch.float32,
                  bn_dtype: torch.dtype = torch.float32):
@@ -130,16 +134,16 @@ class DCGAN64Decoder(NCHWDecoder):
         self.skip = skip
         self.mixing = mixing
         self.last_act = activation(last_activation)
-        coef = 2 if skip else 1
+        snf = (nf if skip_nf is None else skip_nf) if skip else 0
         kw = dict(init_type=init_type, init_gain=init_gain, generator=generator,
                   dtype=dtype, bn_dtype=bn_dtype)
         up = dict(kernel=4, stride=2, padding=1, transpose=True, act="leaky_relu", **kw)
         self.first_upconv = ConvBlock(nz, nf * 8, kernel=4, stride=1, padding=0,
                                       transpose=True, act="leaky_relu", **kw)
-        self.up_0 = ConvBlock(nf * 8 * coef, nf * 4, **up)
-        self.up_1 = ConvBlock(nf * 4 * coef, nf * 2, **up)
-        self.up_2 = ConvBlock(nf * 2 * coef, nf, **up)
-        self.to_frame = ConvBlock(nf * coef, nc, kernel=4, stride=2, padding=1,
+        self.up_0 = ConvBlock((nf + snf) * 8, nf * 4, **up)
+        self.up_1 = ConvBlock((nf + snf) * 4, nf * 2, **up)
+        self.up_2 = ConvBlock((nf + snf) * 2, nf, **up)
+        self.to_frame = ConvBlock(nf + snf, nc, kernel=4, stride=2, padding=1,
                                   transpose=True, bn=False, act="none", **kw)
 
     def forward(self, z1: torch.Tensor, z2: torch.Tensor,
@@ -211,11 +215,14 @@ class VGG64Decoder(NCHWDecoder):
     """VGG mirror decoder: a 4x4 transposed stem, conv stages with nearest 2x
     upsampling, and a 3x3 stride-1 transposed conv to the frame (reference
     ``conv.py:267-320``).  With ``skip`` the encoder's stage outputs
-    (reversed) are concatenated after each stage's input, doubling its
-    width."""
+    (reversed) are concatenated after each stage's input, which then takes
+    ``stage width + skip width`` channels, the skips being as wide as the
+    encoder's stages (``skip_nf``, as in :class:`DCGAN64Decoder`; JAX
+    ``conv.py:198-205``)."""
 
     def __init__(self, nz: int, nc: int, nf: int, *, generator: torch.Generator,
-                 skip: bool = False, last_activation: Optional[str] = None,
+                 skip: bool = False, skip_nf: Optional[int] = None,
+                 last_activation: Optional[str] = None,
                  mixing: str = "concat", vgg32: bool = False, init_type: str = "normal",
                  init_gain: float = 0.02, dtype: torch.dtype = torch.float32,
                  bn_dtype: torch.dtype = torch.float32):
@@ -224,17 +231,17 @@ class VGG64Decoder(NCHWDecoder):
         self.mixing = mixing
         self.vgg32 = vgg32
         self.last_act = activation(last_activation)
-        coef = 2 if skip else 1
+        snf = (nf if skip_nf is None else skip_nf) if skip else 0
         kw = dict(act="leaky_relu", init_type=init_type, init_gain=init_gain,
                   generator=generator, dtype=dtype, bn_dtype=bn_dtype)
         self.first_upconv = ConvBlock(nz, nf * 8, 4, stride=1, padding=0, transpose=True, **kw)
         stage_widths = [[nf * 8, nf * 8, nf * 4], [nf * 4, nf * 4, nf * 2], [nf * 2, nf]]
         self.stages = []
-        c = nf * 8
+        c, s = nf * 8, snf * 8  # the stage's input and its skip map's width
         for i, widths in enumerate(stage_widths):
-            self.stages.append(_conv_stack(self, f"stage_{i}_conv", c * coef, widths, **kw))
-            c = widths[-1]
-        self.stage_3_conv_0 = ConvBlock(nf * coef, nf, 3, stride=1, padding=1, **kw)
+            self.stages.append(_conv_stack(self, f"stage_{i}_conv", c + s, widths, **kw))
+            c, s = widths[-1], s // 2
+        self.stage_3_conv_0 = ConvBlock(nf + snf, nf, 3, stride=1, padding=1, **kw)
         # ConvTranspose2d(nf, nc, 3, 1, 1): same size, no BatchNorm, no activation.
         self.to_frame = ConvBlock(nf, nc, 3, stride=1, padding=1, transpose=True, bn=False,
                                   **{**kw, "act": "none"})

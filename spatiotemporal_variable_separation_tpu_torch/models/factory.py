@@ -88,18 +88,22 @@ def get_decoder(nn_type: str, frame_shape: Tuple[int, ...], last_activation: Opt
                 hidden_size: int, n_layers: int, mixing: str, skipco: bool,
                 init_type: str, init_gain: float, dtype: torch.dtype = torch.float32,
                 bn_dtype: torch.dtype = torch.float32, *, nz: int,
-                generator: torch.Generator) -> torch.nn.Module:
+                generator: torch.Generator,
+                skip_hidden_size: Optional[int] = None) -> torch.nn.Module:
     """The decoder ``nn_type`` of an ``nz``-wide code to frames of
     ``frame_shape`` (JAX ``factory.py:85-108``, same arguments but ``name``;
-    torch takes the code width ``nz``)."""
+    torch takes the code width ``nz``, and under ``skipco`` the width of the
+    encoder's skip maps, ``skip_hidden_size``: its hidden size, by default
+    ``hidden_size``; flax infers both)."""
     kw = dict(init_type=init_type, init_gain=init_gain, generator=generator, dtype=dtype)
     nc = frame_shape[-1]
     common = dict(last_activation=last_activation, mixing=mixing, **kw)
+    skip = dict(skip=skipco, skip_nf=skip_hidden_size)
     if nn_type == "dcgan":
-        return DCGAN64Decoder(nz, nc, hidden_size, skip=skipco, bn_dtype=bn_dtype, **common)
+        return DCGAN64Decoder(nz, nc, hidden_size, bn_dtype=bn_dtype, **skip, **common)
     if nn_type == "vgg":
-        return VGG64Decoder(nz, nc, hidden_size, skip=skipco, vgg32=frame_shape[0] == 32,
-                            bn_dtype=bn_dtype, **common)
+        return VGG64Decoder(nz, nc, hidden_size, vgg32=frame_shape[0] == 32,
+                            bn_dtype=bn_dtype, **skip, **common)
     if nn_type == "decoderSST":  # concat-only (validated)
         cls = DecoderSSTSkip if skipco else DecoderSST
         return cls(nz, nc, last_activation=last_activation, bn_dtype=bn_dtype, **kw)
@@ -121,6 +125,28 @@ def get_integrator(n_blocks: int, hidden_size: int, init_type: str, gain: float,
     return MLPResnet(code_size, n_blocks, hidden_size, **kw)
 
 
+def _check_skip_pairing(cfg: ExperimentConfig) -> None:
+    """Refuse the ``--skipco`` pairings that the config accepts and the JAX
+    package builds but cannot run: the decoder concatenates skip maps that
+    the encoder does not make, or makes at other sizes.  The port refuses
+    them here, before any weight is drawn, where the JAX forward fails."""
+    if cfg.architecture in ("resnet", "mlp"):
+        # The encoder returns a bare code where SeparableNetwork takes
+        # (code, skips): the JAX forward fails unpacking it or tiling its rows
+        # (JAX models/separable.py:198, :152).
+        raise ConfigError(f"--skipco with the {cfg.architecture} encoder: it returns no skip "
+                          "maps (JAX models/separable.py:198, :152; JAX "
+                          "models/resnet18.py:8-10, reference conv.py:546-564)")
+    if cfg.architecture != cfg.decoder_arch and "decoderSST" not in (cfg.architecture,
+                                                                     cfg.decoder_arch):
+        # DCGAN's skips are 4, 8, 16 and 32 pixels wide, VGG-64's 8 to 64: each
+        # decoder's first concatenation meets a map of another size.
+        line = {"dcgan": "conv.py:152", "vgg": "conv.py:199"}[cfg.decoder_arch]
+        raise ConfigError(f"--skipco with a {cfg.architecture} encoder and a "
+                          f"{cfg.decoder_arch} decoder: their skip maps differ in size "
+                          f"(the JAX forward fails concatenating them, JAX models/{line})")
+
+
 def build_separable_network(cfg: ExperimentConfig, device: torch.device,
                             generator: torch.Generator) -> SeparableNetwork:
     """Assemble the forecaster from a config; ``generator`` must be a CPU
@@ -128,12 +154,8 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     cfg = cfg.validate()
     if cfg.decoder_arch not in DECODER_ARCH_TYPES:  # e.g. resnet with no decoder named
         raise ValueError(f"unknown decoder architecture {cfg.decoder_arch!r}")
-    if cfg.architecture == "resnet" and cfg.skipco:
-        # The JAX package says its factory forbids this (models/resnet18.py:8-10)
-        # but its config validation does not: the encoder returns a bare code
-        # where the decoder expects (code, skips).
-        raise ConfigError("--skipco with the resnet encoder: ResNet18 returns no skip maps "
-                          "(JAX models/resnet18.py:8-10, reference conv.py:546-564)")
+    if cfg.skipco:
+        _check_skip_pairing(cfg)
     dtype, bn_dt, shape = compute_dtype(cfg.precision), bn_io_dtype(cfg), cfg.frame_shape
     enc = dict(dtype=dtype, bn_dtype=bn_dt, nt_cond=cfg.nt_cond, generator=generator)
     if cfg.no_s:  # draws nothing from the generator, as it has no weights
@@ -147,7 +169,8 @@ def build_separable_network(cfg: ExperimentConfig, device: torch.device,
     decoder = get_decoder(cfg.decoder_arch, shape, cfg.last_activation, cfg.dec_hidden_size,
                           cfg.dec_n_layers, cfg.mixing, cfg.skipco, cfg.init_encoder,
                           cfg.gain_encoder, dtype=dtype, bn_dtype=bn_dt, nz=nz,
-                          generator=generator)
+                          generator=generator,
+                          skip_hidden_size=cfg.enc_hidden_size if cfg.skipco else None)
     t_resnet = get_integrator(cfg.n_blocks, cfg.res_hidden_size, cfg.init_resnet,
                               cfg.gain_resnet, cfg.fully_conv_integrator,
                               dtype=integrator_dtype(cfg.precision), bn_dtype=bn_dt,

@@ -6,10 +6,12 @@ becomes ``lib<name>.so``, compiled at first use with::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
 
-into ``build/kernels/<name>-<digest>/`` at the root of the checkout (a
-directory ``.gitignore`` lists).  The digest covers the source, the headers
-beside it and the flags, so an edited kernel builds anew and an unchanged one
-loads what an earlier process built.  ``ptxas``'s register and shared-memory
+into ``<root>/<name>-<digest>/``.  The root is
+``utils/compile_cache.py:build_root()``: by default ``build/kernels/`` at the
+root of the checkout (a directory ``.gitignore`` lists), else what
+``VARSEP_COMPILE_CACHE`` or ``enable_compilation_cache`` set.  The digest
+covers the source, the headers beside it and the flags, so an edited kernel
+builds anew and an unchanged one loads what an earlier process built.  ``ptxas``'s register and shared-memory
 report is kept beside the library as ``build.log``.  Sources build in
 parallel, one nvcc each; a failed build raises with nvcc's stderr.
 """
@@ -25,8 +27,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from spatiotemporal_variable_separation_tpu_torch.utils.compile_cache import build_root as _root
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,21 +53,25 @@ def kernel_names() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name: str, build_root: Path = BUILD_ROOT) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by a digest of its inputs."""
+def library_path(name: str, build_root: Optional[Path] = None) -> Path:
+    """Where ``csrc/<name>.cu`` builds to under ``build_root`` (default: the
+    resolved root), keyed by a digest of its inputs."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return Path(build_root) / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+    root = _root() if build_root is None else Path(build_root)
+    return root / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def build(names: Optional[Iterable[str]] = None,
-          build_root: Path = BUILD_ROOT) -> Dict[str, Path]:
+          build_root: Optional[Path] = None) -> Dict[str, Path]:
     """Build every named kernel (default: all of ``csrc/``) that is not built
-    yet, one nvcc each, all started together.  Returns name -> library."""
+    yet under ``build_root`` (default: the resolved root), one nvcc each, all
+    started together.  Returns name -> library."""
     names = kernel_names() if names is None else list(names)
-    targets = {n: library_path(n, build_root) for n in names}
+    root = _root() if build_root is None else Path(build_root)
+    targets = {n: library_path(n, root) for n in names}
     running = {}
     for name, lib in targets.items():
         if lib.exists():

@@ -41,17 +41,21 @@ from torch import nn
 Path = Tuple[str, ...]
 
 
-def _torch_units(model: nn.Module) -> List[Tuple[str, str, nn.Module]]:
-    """Parameterized leaf layers in registration (= flax call) order."""
+def _torch_units(model: nn.Module,
+                 skip: Tuple[str, ...] = ()) -> List[Tuple[str, str, nn.Module]]:
+    """Parameterized leaf layers in registration (= flax call) order, those
+    whose last name is in ``skip`` left out."""
     units = []
     for name, m in model.named_modules():
+        if name.split(".")[-1] in skip:
+            continue
         if isinstance(m, nn.Linear):
             units.append((name, "dense", m))
         elif isinstance(m, nn.ConvTranspose2d):
             units.append((name, "convT", m))
         elif isinstance(m, nn.Conv2d):
             units.append((name, "conv", m))
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             units.append((name, "bn", m))
     return units
 

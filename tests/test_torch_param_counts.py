@@ -51,6 +51,14 @@ MODELS = {  # family: config fields (the recipes of tests/test_recipes.py)
                         dec_hidden_size=150),
     "no_s": dict(data="wave", architecture="mlp", no_s=True, code_size_t=32, n_blocks=3,
                  enc_hidden_size=1200, dec_hidden_size=1200, dec_n_layers=4),
+    # --skipco with an encoder narrower than the decoder (test_torch_skip_widths)
+    "dcgan-skipco-enc8-dec16": dict(data="mnist", skipco=True, enc_hidden_size=8,
+                                    dec_hidden_size=16),
+    "vgg64-skipco-enc8-dec16": dict(data="mnist", architecture="vgg", skipco=True,
+                                    enc_hidden_size=8, dec_hidden_size=16),
+    "vgg32-skipco-enc8-dec16": dict(data="taxibj", architecture="vgg", nt_cond=4, nt_pred=4,
+                                    offset=4, skipco=True, enc_hidden_size=8,
+                                    dec_hidden_size=16),
 }
 # family: (JAX module, its input, port module) for the integrators alone
 INTEGRATORS = {
