@@ -5,7 +5,8 @@ config of ``bench.py`` and scores it with both Moving MNIST protocols; then
 generates WaveEq on the card, trains both WaveEq recipes and scores them;
 then writes the 3D Chairs stand-in corpus, trains the chairs recipe and
 scores its content swap; then makes the TaxiBJ and SST stand-ins in memory,
-trains both recipes and scores them; then trains the ``--no_s`` ablation,
+trains both recipes and scores them, then writes both as their HDF5 files
+and trains and scores them from there; then trains the ``--no_s`` ablation,
 probes the rollout's stability (``diagnose``, ``--monitor_stability``) and
 drives the operations tooling; then trains data- and tensor-parallel and
 evaluates and serves over a mesh, as far as one card can show; then runs
@@ -179,11 +180,12 @@ result line is printed):
        streaming kernel, the plain and ``addmm`` loops, beside the bound.
 12. TaxiBJ (the recipe of ``tests/test_recipes.py:22-25``, full width: VGG
     at nf 64, S 128, T 20, a 1-block MLP-ResNet at H 512, 4 + 4 frames of
-    32x32x2, offset 4, B 100), in a temporary directory.  The card machine
-    has no h5py, so the stand-in (``taxibj_years``, 4 years x 120 days) is
-    made in memory and goes through ``TaxiBJ.from_arrays``, the pipeline
-    the loader runs on the reference's files; the file path (loader, cache,
-    CLIs) is held by the CPU tests:
+    32x32x2, offset 4, B 100), in a temporary directory.  The stand-in
+    (``taxibj_years``, 4 years x 120 days) is made in memory and goes
+    through ``TaxiBJ.from_arrays``, the pipeline the loader runs on the
+    reference's files; phase 18 runs the file path (the port's own HDF5
+    reader and writer, loader, cache, CLIs) on the same stand-in and this
+    phase's experiment:
     a. the VGG encoder and decoder of the seed-0 model, card against CPU, f32
        (TF32 off) and bf16, eval and train mode; one f32 train step at B 8,
        card against CPU, with phase 6's tolerances and 0 launches;
@@ -250,8 +252,8 @@ result line is printed):
        archive, ``gen_synthetic mnist`` against the pinned sha256 of its
        four idx files (no scikit-learn, no cv2), ``verify_corpus`` for
        mnist (on that stand-in and ``make_mnist_test``'s set), wave (14a's
-       corpus) and chairs (a 5-object stand-in), each with exit 0; where
-       h5py is absent, ``verify_corpus taxibj`` fails naming it.
+       corpus) and chairs (a 5-object stand-in), each with exit 0 (phase
+       18b verifies the TaxiBJ and SST files).
 15. data and tensor parallelism (``parallel/``) on the one card, in a
     temporary directory beside phase 9's test set.  One card cannot show NCCL
     across ranks or hosts; it shows a world-1 NCCL group, two processes
@@ -313,6 +315,29 @@ result line is printed):
        reference's factory) and the export imported again: both bitwise;
     e. ``enable_compilation_cache`` resolves the root phase 2 built into,
        and every loaded kernel came from there (no build in this phase).
+18. TaxiBJ and SST from their HDF5 files, run right after phase 13 in its
+    working directory, on phases 12-13's experiments; the files are written
+    and read by the port's own HDF5 module (``data/hdf5.py``), never h5py:
+    a. ``gen_synthetic taxibj`` (4 years x 120 days, 12's stand-in) and
+       ``gen_synthetic sst`` (29 zones x 1,600 days at 64x64, 13's) through
+       their CLI: MB and seconds; h5py not imported; one file of each read
+       and written again alone (ms, MB/s, the rewrite byte-equal);
+    b. ``verify_corpus taxibj`` and ``verify_corpus sst``, exit 0 (run
+       after c-d, on the cache c built);
+    c. ``TaxiBJ.make_datasets`` over the files, built and then read back
+       from its cache: train and test windows and min/max bitwise phase
+       12's ``from_arrays`` splits; seconds of each;
+    d. ``SST`` over the files, the train split (29 zones) and the eval split
+       (zones 17-20): bitwise phase 13's ``SST(arrays=...)`` splits;
+    e. the TaxiBJ recipe through ``cli.main --data taxibj --data_dir`` the
+       files, 1 epoch of 5 steps: finite losses, ms a step, 0 launches;
+    f. under ``cudnn.deterministic``: ``cli.test_taxibj`` from the files on
+       phase 12's experiment in f32 (its checkpoint with ``precision`` f32
+       in a copy of its ``params.json``): one cluster launch a batch (C 8 x
+       16 at B 128 x 8), ``mse_t4`` bitwise the same eval of the in-memory
+       test split (12d's route) with the same launches; ``cli.test_sst``
+       from the files on phase 13's experiment: the four means bitwise the
+       in-memory eval's (13d's route), 0 launches.
 Each phase, and each part of phases 14, 15 and 16, prints its seconds on a line
 of its own; a line before the JSON lines lists every phase's seconds.
 
@@ -325,7 +350,8 @@ kernel's ``wave_*`` times at the WaveEq shape, both kernels' ``chairs_*``
 times at the chairs shape, and the cluster kernel's ``taxibj_*`` times at
 B 128 x 8, its launches on phase 14's paths in ``launches_ops``, on
 phase 15's paths in ``launches_parallel``, in phase 16's programs in
-``launches_bench`` and on phase 17's in ``launches_import``); the last is ``{"ok":
+``launches_bench``, on phase 17's in ``launches_import`` and on phase 18's
+in ``launches_hdf5``); the last is ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -342,6 +368,7 @@ import io
 import itertools
 import json
 import os
+import shutil
 import signal
 import struct
 import sys
@@ -378,11 +405,18 @@ from spatiotemporal_variable_separation_tpu_torch.cli import test_mnist as cli_t
 from spatiotemporal_variable_separation_tpu_torch.cli import (
     test_mnist_disentanglement as cli_test_swap,
 )
+from spatiotemporal_variable_separation_tpu_torch.cli import test_sst as cli_test_sst
+from spatiotemporal_variable_separation_tpu_torch.cli import test_taxibj as cli_test_taxibj
 from spatiotemporal_variable_separation_tpu_torch.cli import test_wave as cli_test_wave
 from spatiotemporal_variable_separation_tpu_torch.cli import verify_corpus as cli_verify_corpus
 from spatiotemporal_variable_separation_tpu_torch.cli import visualize as cli_visualize
 from spatiotemporal_variable_separation_tpu_torch.cli.options import build_parser, config_from_args
-from spatiotemporal_variable_separation_tpu_torch.data import registry, synthetic_corpora, wave_eq
+from spatiotemporal_variable_separation_tpu_torch.data import (
+    hdf5,
+    registry,
+    synthetic_corpora,
+    wave_eq,
+)
 from spatiotemporal_variable_separation_tpu_torch.data.chairs import Chairs
 from spatiotemporal_variable_separation_tpu_torch.data.chairs_device import DeviceChairs
 from spatiotemporal_variable_separation_tpu_torch.data.mnist_device import (
@@ -2495,11 +2529,11 @@ def corpus_sampler(dev, label: str, cfg, host, gen, make_s: float, build_s: floa
 
 def corpus_train(dev, label: str, recipe: list, gen, work: str) -> tuple:
     """Phases 12c and 13c: the recipe through ``run_training`` with the
-    sampler over the stand-in held in memory (the train CLI reads the
-    reference's HDF5 files, and h5py is not on every machine), 2 epochs x 10
-    steps: the loss falls, 0 launches, samples/s, the fused step's ms, a
-    profiler trace; then a mid-epoch resume, bitwise.  Returns (the
-    experiment directory, the profiler's figures)."""
+    sampler over the stand-in held in memory (phase 18e runs the train CLI
+    over the stand-in's HDF5 files), 2 epochs x 10 steps: the loss falls, 0
+    launches, samples/s, the fused step's ms, a profiler trace; then a
+    mid-epoch resume, bitwise.  Returns (the experiment directory, the
+    profiler's figures)."""
     xp = os.path.join(work, label)
     cfg = corpus_config(recipe, xp_dir=xp, seed=0, epochs=CORPUS_EPOCHS,
                         steps_per_epoch=CORPUS_STEPS)
@@ -2675,7 +2709,8 @@ def taxibj_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
         t0 = model.encode_t(cond).contiguous()
     kernel = kernel_turns(t0, model.t_resnet.flat_params(), cfg.nt_cond + 4, flops_peak, bw_peak)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
-    return {**kernel, "launches": launches, "train": prof, "ckpt": ckpt}
+    return {**kernel, "launches": launches, "train": prof, "ckpt": ckpt, "xp": xp,
+            "splits": (train, test)}
 
 
 def sst_phase(dev, work: str) -> dict:
@@ -2710,7 +2745,6 @@ def sst_phase(dev, work: str) -> dict:
     upload_s = time.perf_counter() - t
     check(len(test) == SST_TEST_SEQS, "the SST test split's size")
     corpus_sampler(dev, "SST", cfg, train, gen, make_s, build_s, upload_s)   # 13b
-    del train
     xp, prof = corpus_train(dev, "sst", SST_RECIPE, gen, work)               # 13c
     del gen
     ckpt = corpus_eval_checkpoint(dev, xp, "SST", eval_sst.evaluate, test, SST_TEST_SEQS, "sst",
@@ -2745,7 +2779,7 @@ def sst_phase(dev, work: str) -> dict:
         check(mse_err <= EVAL_MSE_RTOL and ssim_err <= SST_SSIM_ATOL,
               "SST scores, card against CPU")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "train": prof, "ckpt": ckpt}
+    return {"launches": launches, "train": prof, "ckpt": ckpt, "xp": xp, "splits": (train, test)}
 
 
 def phase12_13_only(dev=None) -> None:
@@ -2753,7 +2787,8 @@ def phase12_13_only(dev=None) -> None:
     script::
 
         python3 -c "import chip_smoke; chip_smoke.phase12_13_only()"
-    """
+
+    ``phase18_only`` runs them with phase 18 after them."""
     dev = torch.device("cuda:0") if dev is None else dev
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2764,6 +2799,228 @@ def phase12_13_only(dev=None) -> None:
     with tempfile.TemporaryDirectory() as work:
         taxibj_phase(dev, work, flops_peak, bw_peak)
         sst_phase(dev, work)
+
+
+# -- phase 18: TaxiBJ and SST from their HDF5 files ------------------------------
+# 18e's train CLI from the files: 1 epoch of a few steps at the recipe.
+HDF5_TRAIN_STEPS = 5
+
+
+def corpus_mb(d: str, prefix: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d)
+               if n.startswith(prefix)) / 1e6
+
+
+def same_taxibj(ours: TaxiBJ, ref: TaxiBJ) -> bool:
+    return (ours.data.shape == ref.data.shape and ours.data.tobytes() == ref.data.tobytes()
+            and (ours.mmn._min, ours.mmn._max) == (ref.mmn._min, ref.mmn._max))
+
+
+def same_sst(ours: SST, ref: SST) -> bool:
+    return ((ours.zone_size, ours.len_, ours.first, len(ours))
+            == (ref.zone_size, ref.len_, ref.first, len(ref))
+            and all(ours.data[z].tobytes() == ref.data[z].tobytes()
+                    and all(a.tobytes() == b.tobytes() for a, b in
+                            zip(ours.cst[z] + ours.climato[z], ref.cst[z] + ref.climato[z]))
+                    for z in ref.zones))
+
+
+def hdf5_files(taxibj_dir: str, sst_dir: str) -> dict:
+    """18a: both stand-ins written through ``gen_synthetic`` (the port's
+    HDF5 writer), the writer and reader timed alone on one file each.
+    Returns the seconds."""
+    seconds = {}
+    for corpus, d, argv in (
+            ("taxibj", taxibj_dir, ["--days_per_year", str(TAXIBJ_DAYS)]),
+            ("sst", sst_dir, ["--n_days", str(SST_DAYS), "--size",
+                              str(corpus_config(SST_RECIPE).zone_size), "--zones"]
+             + [str(z) for z in SST_ZONES])):
+        t = time.perf_counter()
+        cli_gen_synthetic.main([corpus, "--data_dir", d] + argv)
+        seconds[f"gen_{corpus}"] = time.perf_counter() - t
+        mb = corpus_mb(d, "BJ" if corpus == "taxibj" else "data_")
+        print(f"  gen_synthetic {corpus}: {len(os.listdir(d))} files, {mb:.1f} MB in "
+              f"{seconds[f'gen_{corpus}']:.2f} s, the stand-in's arrays made in that time too")
+    check("h5py" not in sys.modules, "the port imported h5py")
+    print(f"  h5py installed on this machine: {importlib.util.find_spec('h5py') is not None}; "
+          f"imported: {'h5py' in sys.modules}")
+    # the writer and the reader alone: one TaxiBJ year (94.4 MB) and one SST zone
+    for label, path in (("TaxiBJ year", os.path.join(taxibj_dir, "BJ13_M32x32_T30_InOut.h5")),
+                        ("SST zone", os.path.join(sst_dir, f"data_{SST_ZONES[0]}.nc"))):
+        t = time.perf_counter()
+        with hdf5.open(path) as f:
+            arrays = {name: (f[name][()], dict(f[name].attrs)) for name in f}
+        read_s = time.perf_counter() - t
+        copy_path = path + ".rewritten"
+        t = time.perf_counter()
+        hdf5.write(copy_path, {name: arrays[name] for name in
+                               (("data", "date") if label == "TaxiBJ year"
+                                else ("thetao", "daily_mean", "daily_std"))})
+        write_s = time.perf_counter() - t
+        mb = os.path.getsize(path) / 1e6
+        same = open(copy_path, "rb").read() == open(path, "rb").read()
+        os.unlink(copy_path)
+        print(f"  {label}, {mb:.1f} MB: read (hdf5.open, every dataset's [()], page cache warm) "
+              f"{read_s * 1e3:.1f} ms = {mb / read_s:.0f} MB/s; written again (hdf5.write) "
+              f"{write_s * 1e3:.1f} ms = {mb / write_s:.0f} MB/s, byte-equal: {same}")
+        check(same, f"{label}: the rewritten file differs")
+        seconds[f"read_{label}"], seconds[f"write_{label}"] = read_s, write_s
+    return seconds
+
+
+def hdf5_verify(taxibj_dir: str, sst_dir: str) -> None:
+    """18b: ``verify_corpus`` over both directories (after 18c, on the
+    TaxiBJ cache it built)."""
+    for benchmark, d, argv in (("taxibj", taxibj_dir, []),
+                               ("sst", sst_dir, ["--zones"] + [str(z) for z in SST_ZONES])):
+        t = time.perf_counter()
+        rc = cli_verify_corpus.main([benchmark, "--data_dir", d] + argv)
+        print(f"  verify_corpus {benchmark}: exit {rc} in {time.perf_counter() - t:.1f} s")
+        check(rc == 0, f"verify_corpus {benchmark}")
+
+
+def hdf5_datasets(taxibj_dir: str, sst_dir: str, taxibj: dict, sst: dict) -> None:
+    """18c-d: the loaders over the files against phases 12-13's splits,
+    made in memory from the same stand-in arrays: bitwise."""
+    cfg = corpus_config(TAXIBJ_RECIPE, seed=0)
+    L = cfg.nt_cond + cfg.nt_pred
+    nbytes, t = 0, time.perf_counter()
+    for year in range(13, 17):  # what make_datasets reads
+        with hdf5.open(os.path.join(taxibj_dir, f"BJ{year}_M32x32_T30_InOut.h5")) as f:
+            nbytes += f["data"][()].nbytes + f["date"][()].nbytes
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    built = TaxiBJ.make_datasets(taxibj_dir, len_closeness=L, nt_cond=cfg.nt_cond)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cached = TaxiBJ.make_datasets(taxibj_dir, len_closeness=L, nt_cond=cfg.nt_cond)
+    cached_s = time.perf_counter() - t
+    same = [same_taxibj(o, r) for splits in (built, cached)
+            for o, r in zip(splits, taxibj["splits"])]
+    print(f"  the 4 TaxiBJ years read alone (data and date, {nbytes / 1e6:.1f} MB) in "
+          f"{read_s:.3f} s; "
+          f"TaxiBJ.make_datasets over the 4 files: read, windowed and cached in "
+          f"{build_s:.2f} s ({corpus_mb(taxibj_dir, 'closeness_'):.1f} MB cache), read back "
+          f"from the cache in {cached_s * 1e3:.1f} ms (memory-mapped: "
+          f"{isinstance(cached[0].data, np.memmap)}); train and test windows and min/max "
+          f"bitwise phase 12's from_arrays: {same}")
+    check(all(same), "TaxiBJ from the files differs from the in-memory splits")
+    sst_cfg = corpus_config(SST_RECIPE, seed=0)
+    for split, (train, zones, nt_pred) in enumerate(((True, SST_ZONES, sst_cfg.nt_pred),
+                                                     (False, SST_TEST_ZONES, eval_sst.NT_PRED))):
+        t = time.perf_counter()
+        files = SST(sst_dir, sst_cfg.nt_cond, nt_pred, train, zones=zones, eval=not train)
+        secs = time.perf_counter() - t
+        same = same_sst(files, sst["splits"][split])
+        print(f"  SST({'train' if train else 'eval'}, zones {zones[0]}-{zones[-1]}) over "
+              f"{len(zones)} files: {secs:.2f} s, {len(files)} windows, bitwise phase 13's "
+              f"SST(arrays=...): {same}")
+        check(same, "SST from the files differs from the in-memory split")
+
+
+def hdf5_train_cli(taxibj_dir: str, work: str) -> dict:
+    """18e: the TaxiBJ recipe through the train CLI from the files."""
+    xp = os.path.join(work, "taxibj_files")
+    argv = (["--xp_dir", xp, "--data_dir", taxibj_dir] + TAXIBJ_RECIPE
+            + ["--seed", "0", "--epochs", "1", "--steps_per_epoch", str(HDF5_TRAIN_STEPS),
+               "--log_every", "1"])
+    print("  train CLI: python -m spatiotemporal_variable_separation_tpu_torch.cli.main "
+          + " ".join(argv))
+    reset_launch_counts()
+    t = time.perf_counter()
+    state = cli_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    rows = metrics_rows(xp)
+    losses = [(int(r["step"]), float(r["loss"])) for r in rows if not r["samples_per_sec"]]
+    sps = [float(r["samples_per_sec"]) for r in rows if r["samples_per_sec"]]
+    batch = ExperimentConfig.from_json_file(os.path.join(xp, "params.json")).batch_size
+    print(f"  {state.step} steps in {wall:.1f} s (start-up, the cached windows' upload and "
+          f"the first step's warm-up included); loss by step: "
+          + ", ".join(f"{s}: {v:.4f}" for s, v in losses)
+          + f"; the epoch's {sps[0]:.1f} samples/s = {batch / sps[0] * 1e3:.1f} ms/step "
+          f"(warm-up included); rollout kernel launches {launches}")
+    check(state.step == HDF5_TRAIN_STEPS and len(losses) == HDF5_TRAIN_STEPS
+          and all(np.isfinite(v) for _, v in losses), "the TaxiBJ train CLI from the files")
+    check(launches == {"cluster": 0, "stream": 0}, "TaxiBJ training launched the kernel")
+    return {"launches": launches, "wall_s": wall, "ms_step": batch / sps[0] * 1e3,
+            "losses": losses}
+
+
+def hdf5_eval_clis(dev, taxibj_dir: str, sst_dir: str, work: str, taxibj: dict,
+                   sst: dict) -> dict:
+    """18f: ``test_taxibj`` (phase 12's experiment in f32: the cluster
+    kernel) and ``test_sst`` (phase 13's) from the files, each against the
+    same eval of the in-memory split, bitwise under ``cudnn.deterministic``,
+    with the same launches."""
+    xp = os.path.join(work, "taxibj_f32_view")
+    shutil.copytree(taxibj["xp"], xp)
+    params = json.load(open(os.path.join(xp, "params.json")))
+    params["precision"] = "f32"  # parameters are f32 under every policy
+    json.dump(params, open(os.path.join(xp, "params.json"), "w"))
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, main, xp_dir, data_dir, evaluate, test in (
+                ("taxibj", cli_test_taxibj.main, xp, taxibj_dir, eval_taxibj.evaluate,
+                 taxibj["splits"][1]),
+                ("sst", cli_test_sst.main, sst["xp"], sst_dir, eval_sst.evaluate,
+                 sst["splits"][1])):
+            reset_launch_counts()
+            memory = evaluate(xp_dir, "", test_set=test, device=dev)
+            torch.cuda.synchronize()
+            mem_launches = dict(mlp_resnet_rollout.variant_launches)
+            _, secs, cli_launches = run_main(main, ["--xp_dir", xp_dir, "--data_dir", data_dir])
+            files = json.load(open(os.path.join(xp_dir, "evals.json")))[label]
+            same = all(files[k] == v for k, v in memory.items())
+            print(f"  test_{label} CLI from the files on phase {12 if label == 'taxibj' else 13}"
+                  f"'s experiment{' in f32' if label == 'taxibj' else ''}: {secs:.2f} s; "
+                  f"{ {k: files[k] for k in memory} }; in memory {memory}; bitwise: {same}; "
+                  f"launches from the files {cli_launches}, in memory {mem_launches}")
+            check(same, f"test_{label} from the files differs from the in-memory eval")
+            check(cli_launches == mem_launches, f"test_{label}: launches differ")
+            out[label] = {"launches": cli_launches, "memory_launches": mem_launches,
+                          "means": memory, "seconds": secs}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n_batches = -(-TAXIBJ_TEST_SEQS // TAXIBJ_EVAL_B)
+    check(out["taxibj"]["launches"] == {"cluster": n_batches, "stream": 0},
+          "test_taxibj in f32: one cluster launch a batch")
+    check(out["sst"]["launches"] == {"cluster": 0, "stream": 0}, "test_sst launched a kernel")
+    return out
+
+
+def hdf5_phase(dev, work: str, taxibj: dict, sst: dict) -> dict:
+    """Phase 18: TaxiBJ and SST from their HDF5 files, beside phases
+    12-13's in-memory route.  Returns 18e-f's launches."""
+    t_phase = time.perf_counter()
+    taxibj_dir, sst_dir = os.path.join(work, "taxibj_data"), os.path.join(work, "sst_data")
+    seconds = hdf5_files(taxibj_dir, sst_dir)                       # 18a
+    hdf5_datasets(taxibj_dir, sst_dir, taxibj, sst)                 # 18c-d
+    hdf5_verify(taxibj_dir, sst_dir)                                # 18b
+    train = hdf5_train_cli(taxibj_dir, work)                        # 18e
+    evals = hdf5_eval_clis(dev, taxibj_dir, sst_dir, work, taxibj, sst)   # 18f
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return {"train": train, "evals": evals, "seconds": seconds}
+
+
+def phase18_only(dev=None) -> None:
+    """Phases 12 and 13, then 18 on their experiments::
+
+        python3 -c "import chip_smoke; chip_smoke.phase18_only()"
+    """
+    dev = torch.device("cuda:0") if dev is None else dev
+    torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {nvidia_smi()}")
+    card = torch.cuda.get_device_name(0)
+    flops_peak, bw_peak = card_peaks(card)[:2]
+    _build.build()
+    with tempfile.TemporaryDirectory() as work:
+        taxibj = taxibj_phase(dev, work, flops_peak, bw_peak)
+        sst = sst_phase(dev, work)
+        hdf5_phase(dev, work, taxibj, sst)
 
 
 # -- phase 14: --no_s, the stability probe and the operations tooling ------------
@@ -3152,13 +3409,6 @@ def ops_tools(work: str, phase9_xp: str, wave_dir: str) -> None:
     for benchmark, data_dir in (("mnist", mnist), ("wave", wave_dir), ("chairs", chairs)):
         rc = cli_verify_corpus.main([benchmark, "--data_dir", data_dir])
         check(rc == 0, f"verify_corpus {benchmark}")
-    if absent["h5py"]:  # the HDF5 corpora fail, naming h5py
-        out = []
-        ok = cli_verify_corpus.verify("taxibj", work, log_fn=out.append)
-        fails = [line for line in out if "FAIL" in line]
-        print(f"  verify_corpus taxibj without h5py: {fails}")
-        check(not ok and fails and all("h5py" in line for line in fails),
-              "verify_corpus taxibj without h5py")
 
 
 def ops_phase(dev, work: str, data_dir: str, phase8_xp: str) -> dict:
@@ -4274,11 +4524,15 @@ def main() -> None:
     phase_done(11, quiet=True)
     chairs_labels = [label for label in cases if label.startswith("chairs")]
 
-    # -- 12. TaxiBJ and 13. SST (each prints its own seconds) -------------------
+    # -- 12. TaxiBJ and 13. SST, then 18. both from their HDF5 files on 12-13's
+    # experiments (each prints its own seconds) -----------------------------------
     with tempfile.TemporaryDirectory() as work:
         taxibj = taxibj_phase(dev, work, flops_peak, bw_peak)
         sst = sst_phase(dev, work)
-    phase_done("12-13", quiet=True)
+        phase_done("12-13", quiet=True)
+        files = hdf5_phase(dev, work, taxibj, sst)
+        phase_done(18, quiet=True)
+    del taxibj["splits"], sst["splits"]
     taxibj_keys = {"taxibj_shapes": taxibj["shapes"], "taxibj_plan": taxibj["plan"]._asdict(),
                    "taxibj_ms": taxibj["ms"]["cluster"], "taxibj_stream_ms": taxibj["ms"]["stream"],
                    "taxibj_plain_ms": taxibj["ms"]["plain"],
@@ -4378,6 +4632,14 @@ def main() -> None:
             "taxibj training and its resume (12c)": 0,
             "taxibj train step, card against CPU (12a)": 0},
         **(taxibj_keys if v == "cluster" else {}),
+        "launches_hdf5": {
+            "test_taxibj CLI from the files, phase 12's experiment in f32 (18f)":
+                files["evals"]["taxibj"]["launches"][v],
+            "the same eval of the in-memory split (18f)":
+                files["evals"]["taxibj"]["memory_launches"][v],
+            "test_sst CLI from the files, phase 13's experiment (18f)":
+                files["evals"]["sst"]["launches"][v],
+            "taxibj train CLI from the files (18e)": files["train"]["launches"][v]},
         "launches_sst": {
             "sst evaluate(model_bundle=f32 seed 0), zones 17-20 (13e)": sst["launches"][v],
             "sst on the bf16 checkpoint (13d)": 0,

@@ -4,8 +4,9 @@
 
 The port's counterpart of the JAX package's ``cli/gen_synthetic.py``, with
 its flags: the TaxiBJ, SST, Chairs and MNIST stand-ins
-(``data/synthetic_corpora.py``; TaxiBJ and SST need h5py; MNIST reads the
-vendored digits and needs neither scikit-learn nor cv2)."""
+(``data/synthetic_corpora.py``; TaxiBJ and SST are written by the port's
+own HDF5 writer, ``data/hdf5.py``, byte-equal to h5py's files; MNIST reads
+the vendored digits and needs neither scikit-learn nor cv2)."""
 
 import argparse
 

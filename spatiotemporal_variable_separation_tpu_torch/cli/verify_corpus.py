@@ -15,8 +15,7 @@ building the train and eval datasets through the port's own loaders
 (``data/registry.py``), the code training and evaluation run.  On success
 it prints the port's train and eval commands for the benchmark (the
 reference recipes, ``README.md:71-95``).  The TaxiBJ and SST files are
-HDF5: their checks need h5py and fail with "No module named 'h5py'" where
-it is missing.
+HDF5, read with the port's own reader (``data/hdf5.py``; no h5py).
 
 Exit code 0 iff every check passed.
 """
@@ -145,14 +144,14 @@ def _layout_mnist(d: str) -> List[Check]:
 
 def _layout_taxibj(d: str) -> List[Check]:
     def years():
-        import h5py
+        from spatiotemporal_variable_separation_tpu_torch.data import hdf5
 
         found = []
         for y in (13, 14, 15, 16):
             p = os.path.join(d, f"BJ{y}_M32x32_T30_InOut.h5")
             if not os.path.isfile(p):
                 raise FileNotFoundError(f"missing {os.path.basename(p)}")
-            with h5py.File(p, "r") as f:
+            with hdf5.open(p) as f:
                 if "data" not in f or "date" not in f:
                     raise ValueError(
                         f"BJ{y}: needs 'data' and 'date' datasets")
@@ -173,14 +172,14 @@ def _layout_taxibj(d: str) -> List[Check]:
 
 def _layout_sst(d: str, zones) -> List[Check]:
     def files():
-        import h5py
+        from spatiotemporal_variable_separation_tpu_torch.data import hdf5
 
         lengths = {}
         for zone in zones:
             p = os.path.join(d, f"data_{zone}.nc")
             if not os.path.isfile(p):
                 raise FileNotFoundError(f"missing data_{zone}.nc")
-            with h5py.File(p, "r") as f:
+            with hdf5.open(p) as f:
                 for var in ("thetao", "daily_mean", "daily_std"):
                     if var not in f:
                         raise ValueError(f"data_{zone}.nc lacks {var!r}")

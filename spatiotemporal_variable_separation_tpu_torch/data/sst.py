@@ -3,7 +3,8 @@
 The port's own copy of the JAX package's ``data/sst.py:1-122`` (numpy only).
 One ``data_{zone}.nc`` a zone, with ``thetao`` (T, N, N) and ``daily_mean``,
 ``daily_std`` (T,).  netCDF4 is HDF5 underneath: the files are read with
-h5py, and the CF ``scale_factor``/``add_offset`` packing is applied by hand
+the port's own HDF5 reader (``data/hdf5.py``; no h5py), and the CF
+``scale_factor``/``add_offset`` packing is applied by hand in ``cf_decode``
 (``_FillValue`` pixels keep their raw scaled values, as the reference reads
 the masked array's ``.data``, ``sst.py:24-29``).
 
@@ -16,9 +17,9 @@ lengths and grids (the reference takes both from the last zone read); the
 grid edge gives ``zone_size``.
 
 ``SST(..., arrays=...)`` takes each zone's variables already read (a
-mapping zone -> {variable: array}) instead of the files: where h5py is
-missing, the stand-in corpus (``synthetic_corpora.sst_zone_variables``)
-goes through the same pipeline.
+mapping zone -> {variable: array}) instead of the files: the stand-in corpus
+(``synthetic_corpora.sst_zone_arrays``) goes through the same pipeline
+without touching disk.
 """
 
 from __future__ import annotations
@@ -28,28 +29,34 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from spatiotemporal_variable_separation_tpu_torch.data import hdf5
+
+#: the attributes ``cf_decode`` reads; a variable's others (netCDF's
+#: ``units`` strings, ``DIMENSION_LIST`` references) are never decoded
+CF_PACKING = ("scale_factor", "add_offset")
+
 
 def cf_decode(raw: np.ndarray, attrs: Mapping) -> np.ndarray:
-    """A stored variable in f64 with its CF packing undone."""
+    """A stored variable in f64 with its CF packing undone.  The packing
+    attributes may be scalars or, as netCDF-4 stores them, 1-element
+    arrays."""
     data = np.asarray(raw, np.float64)
     scale = attrs.get("scale_factor")
     offset = attrs.get("add_offset")
     if scale is not None:
-        data = data * np.float64(scale)
+        data = data * np.asarray(scale, np.float64).reshape(())
     if offset is not None:
-        data = data + np.float64(offset)
+        data = data + np.asarray(offset, np.float64).reshape(())
     return data
 
 
 def _read_nc_var(f, name: str) -> np.ndarray:
     ds = f[name]
-    return cf_decode(ds[()], dict(ds.attrs))
+    return cf_decode(ds[()], {k: ds.attrs[k] for k in CF_PACKING if k in ds.attrs})
 
 
 def extract_data(path: str, variables: Sequence[str]) -> Dict[str, np.ndarray]:
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.open(path) as f:
         return {v: _read_nc_var(f, v) for v in variables}
 
 

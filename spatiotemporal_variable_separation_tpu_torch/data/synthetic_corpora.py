@@ -11,9 +11,10 @@ MNIST see ``make_mnist_standin``), so the recipes run end to end.  Scores on
 them validate the pipeline, not the paper's numbers.
 
 TaxiBJ and SST are split into an array function (``taxibj_years``,
-``sst_zone_variables``) and a writer (``make_taxibj``, ``make_sst``, with
-h5py), so that the arrays also feed ``data.taxibj.TaxiBJ.from_arrays`` and
-``data.sst.SST(arrays=...)`` where h5py is missing.
+``sst_zone_variables``) and a writer (``make_taxibj``, ``make_sst``, through
+the port's own HDF5 writer ``data/hdf5.py``, whose files are byte-equal to
+h5py's), so that the arrays also feed ``data.taxibj.TaxiBJ.from_arrays`` and
+``data.sst.SST(arrays=...)`` in memory.
 """
 
 from __future__ import annotations
@@ -61,13 +62,12 @@ def taxibj_years(days_per_year: int = 120, seed: int = 0
 def make_taxibj(data_dir: str, days_per_year: int = 120, seed: int = 0) -> None:
     """Write ``taxibj_years`` as ``BJ{year}_M32x32_T30_InOut.h5`` (``data``,
     ``date``)."""
-    import h5py
+    from spatiotemporal_variable_separation_tpu_torch.data import hdf5
 
     os.makedirs(data_dir, exist_ok=True)
     for year, data, dates in taxibj_years(days_per_year, seed):
-        with h5py.File(os.path.join(data_dir, f"BJ{year}_M32x32_T30_InOut.h5"), "w") as f:
-            f.create_dataset("data", data=data)
-            f.create_dataset("date", data=np.array(dates))
+        hdf5.write(os.path.join(data_dir, f"BJ{year}_M32x32_T30_InOut.h5"),
+                   {"data": (data, {}), "date": (np.array(dates), {})})
 
 
 def _sst_zones_64(zones, n_days: int, seed: int) -> Iterator[Tuple[int, ZoneVariables]]:
@@ -167,15 +167,11 @@ def make_sst(data_dir: str, zones=range(1, 30), n_days: int = 1600, seed: int = 
              size: int = 64) -> None:
     """Write ``sst_zone_variables`` as ``data_{zone}.nc`` (HDF5, as netCDF4
     files are underneath)."""
-    import h5py
+    from spatiotemporal_variable_separation_tpu_torch.data import hdf5
 
     os.makedirs(data_dir, exist_ok=True)
     for zone, variables in sst_zone_variables(zones, n_days, seed, size):
-        with h5py.File(os.path.join(data_dir, f"data_{zone}.nc"), "w") as f:
-            for name, (raw, attrs) in variables.items():
-                d = f.create_dataset(name, data=raw)
-                for k, val in attrs.items():
-                    d.attrs[k] = val
+        hdf5.write(os.path.join(data_dir, f"data_{zone}.nc"), variables)
 
 
 #: scikit-learn's bundled 8x8 digits (``sklearn/datasets/data/digits.csv.gz``

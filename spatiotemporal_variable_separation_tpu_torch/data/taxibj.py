@@ -4,7 +4,8 @@ vendored from MIM).
 The port's own copy of the JAX package's ``data/taxibj.py:1-219`` (numpy
 only; the port imports nothing of the JAX package).  Pipeline:
 * the four yearly HDF5 files ``BJ{13..16}_M32x32_T30_InOut.h5`` (``data``
-  (N, 2, 32, 32), ``date`` byte strings ``YYYYMMDDSS``), read with h5py;
+  (N, 2, 32, 32), ``date`` byte strings ``YYYYMMDDSS``), read with the
+  port's own HDF5 reader (``data/hdf5.py``; no h5py);
 * days without all 48 half-hour slots dropped (``taxibj.py:184-207``);
 * negatives clamped to 0, the min-max fit on the raw frames minus the last
   ``len_test`` (``taxibj.py:234-239``);
@@ -17,8 +18,8 @@ Items are ``(cond, target)`` f32 ``(T, 32, 32, 2)``, channels last.
 ``make_datasets`` caches the windowed corpus beside the files, under the JAX
 package's names, ``CACHE_VERSION`` and meta keys, so either package reads a
 cache the other wrote.  ``from_arrays`` runs the same pipeline on yearly
-arrays held in memory (no files, no cache): where h5py is missing, the
-stand-in corpus (``synthetic_corpora.taxibj_years``) goes through it.
+arrays held in memory (no files, no cache): the stand-in corpus
+(``synthetic_corpora.taxibj_years``) goes through it without touching disk.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from spatiotemporal_variable_separation_tpu_torch.data import hdf5
 
 #: bump when remove_incomplete_days / MinMaxNormalization / _build_closeness
 #: change: the cache fingerprints the source files only.
@@ -154,8 +157,6 @@ class TaxiBJ:
                       nt_cond: int = 4) -> Tuple["TaxiBJ", "TaxiBJ"]:
         """(train, test) from the yearly h5 files of ``data_dir``, through the
         build-once cache ``closeness_L{L}_test{len_test}.npy`` (+ ``.meta.npz``)."""
-        import h5py
-
         src = [os.path.join(data_dir, f"BJ{y}_M32x32_T30_InOut.h5") for y in YEARS]
         fingerprint = np.array([(os.path.getsize(p), int(os.path.getmtime(p))) for p in src],
                                np.int64)
@@ -175,7 +176,7 @@ class TaxiBJ:
 
         years = []
         for path in src:
-            with h5py.File(path, "r") as f:
+            with hdf5.open(path) as f:
                 years.append((f["data"][()], list(f["date"][()])))
         xc, mmn = _closeness_corpus(years, T, nb_flow, len_closeness, len_test)
         # crashed builds leave .tmp files no later run touches: sweep them first

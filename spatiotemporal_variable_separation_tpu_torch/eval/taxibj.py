@@ -40,7 +40,8 @@ def frame_mses(xp_dir: str, model, cfg, test_set: TaxiBJ, batch_size: int = 128,
     batch_size = min(batch_size, len(test_set))
     horizon = (NT_PRED + nt_cond) if offset else NT_PRED
     bn_reestimate_pass(ev, test_set, batch_size, horizon, bn_reestimate)
-    items = torch.from_numpy(np.ascontiguousarray(test_set.data, np.float32)).to(ev.device)
+    # a copy: a split read from the cache is a read-only memory map
+    items = torch.from_numpy(np.array(test_set.data, np.float32)).to(ev.device)
     archive = FrameArchive() if save_arrays else None
     all_mse = []
     for idx, n_real in batch_indices(len(test_set), batch_size, max_batches):
