@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
 from spatiotemporal_variable_separation_tpu_torch.models.layers import running_stats_frozen
 from spatiotemporal_variable_separation_tpu_torch.ops.rollout import mlp_resnet_rollout
+from spatiotemporal_variable_separation_tpu_torch.utils.profiling import span
 
 
 def _tile_leading(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -139,6 +140,11 @@ class SeparableNetwork(nn.Module):
     def _decode_all(self, s_code: torch.Tensor, skips, t_codes: torch.Tensor
                     ) -> torch.Tensor:
         """Decode every (S, T_t) pair: t_codes (n, B, *code) -> (B, n, *frame)."""
+        with span("decode"):
+            return self._decode_frames(s_code, skips, t_codes)
+
+    def _decode_frames(self, s_code: torch.Tensor, skips, t_codes: torch.Tensor
+                       ) -> torch.Tensor:
         n, b = t_codes.shape[0], t_codes.shape[1]
         if self.training and self.decode_mode == "stepwise":
             frames = torch.stack([self._remat(self.decoder, s_code, t_codes[i], skips)

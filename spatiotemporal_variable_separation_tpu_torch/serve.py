@@ -55,6 +55,7 @@ from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import (
     replicated_sharding,
     shard_batch,
 )
+from spatiotemporal_variable_separation_tpu_torch.utils.profiling import span
 from spatiotemporal_variable_separation_tpu_torch.utils.weights import load_flax_variables
 
 
@@ -140,12 +141,18 @@ class Forecaster:
         if b > self.batch_size:
             raise ValueError(f"request batch {b} exceeds the served "
                              f"batch {self.batch_size}")
-        if b < self.batch_size:
-            pad = np.repeat(cond[-1:], self.batch_size - b, axis=0)
-            cond = np.concatenate([cond, pad], axis=0)
-        x = torch.from_numpy(np.ascontiguousarray(cond, dtype=np.float32))
-        out = self.forecast(x.to(self.device))
-        return out[:b].float().cpu().numpy()  # numpy has no bf16
+        # every call computes the fixed batch (under a mesh its equal shards
+        # add up to it): ``rows_computed`` against the ``rows`` asked for
+        with span("predict", rows=b, rows_computed=self.batch_size):
+            with span("stage_in"):
+                if b < self.batch_size:
+                    pad = np.repeat(cond[-1:], self.batch_size - b, axis=0)
+                    cond = np.concatenate([cond, pad], axis=0)
+                x = torch.from_numpy(np.ascontiguousarray(cond, dtype=np.float32))
+                x = x.to(self.device)
+            out = self.forecast(x)
+            with span("copy_back"):
+                return out[:b].float().cpu().numpy()  # numpy has no bf16
 
     def benchmark(self, n_iters: int = 50, warmup: int = 5) -> Dict[str, Any]:
         """Steady-state latency of ``forecast`` on a device-resident batch;

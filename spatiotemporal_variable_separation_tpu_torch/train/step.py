@@ -41,6 +41,7 @@ from spatiotemporal_variable_separation_tpu_torch.core.config import ConfigError
 from spatiotemporal_variable_separation_tpu_torch.models.layers import batch_stats_over
 from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import DATA_AXIS, shard_batch
 from spatiotemporal_variable_separation_tpu_torch.parallel.tensor import expect_shardings
+from spatiotemporal_variable_separation_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from spatiotemporal_variable_separation_tpu_torch.train.state import TrainState
@@ -183,13 +184,16 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
             group["lr"] = lr
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = losses(
-            cond, target, t_random, cfg.offset, cfg.lamb_ae, cfg.lamb_s, lamb_t,
-            cfg.lamb_pred, cfg.average_tloss, lamb_s_norm=cfg.lamb_s_norm)
-        loss.backward()
-        if by_hand and n_data > 1:
-            average_grads()
-        optimizer.step()
+        with span("forward"):
+            loss, metrics = losses(
+                cond, target, t_random, cfg.offset, cfg.lamb_ae, cfg.lamb_s, lamb_t,
+                cfg.lamb_pred, cfg.average_tloss, lamb_s_norm=cfg.lamb_s_norm)
+        with span("backward"):
+            loss.backward()
+            if by_hand and n_data > 1:
+                average_grads()
+        with span("optimizer"):
+            optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         if data_group is not None:
@@ -207,9 +211,10 @@ def datagen_batch(generator: DeviceGenerator, cfg: ExperimentConfig, step: int,
     """The (cond, target) batch of train step ``step``, made on the
     generator's device from ``step_seed(cfg.seed, DATA_SALT, step)``.
     ``rng``: a generator on that device to reseed (a new one if None)."""
-    rng = rng if rng is not None else torch.Generator(device=generator.device)
-    rng.manual_seed(step_seed(cfg.seed, DATA_SALT, step))
-    return generator.generate_device_batch(rng, cfg.batch_size)
+    with span("draw"):
+        rng = rng if rng is not None else torch.Generator(device=generator.device)
+        rng.manual_seed(step_seed(cfg.seed, DATA_SALT, step))
+        return generator.generate_device_batch(rng, cfg.batch_size)
 
 
 def make_fused_datagen_step(model: torch.nn.Module, cfg: ExperimentConfig,

@@ -1,9 +1,21 @@
 """Profiling and observability.
 
 Torch counterpart of the JAX package's ``utils/profiling.py`` (the reference
-has a tqdm bar only): a ``torch.profiler`` trace of a block of training
-steps, written as a Chrome trace (open it in ``chrome://tracing`` or
-Perfetto), a CSV metrics logger and a step timer."""
+has a tqdm bar only):
+
+* ``span(name, **counts)``: a range at a layer boundary of serving or
+  training, ``varsep::<name>`` in the profiler's trace (which holds its
+  times and nesting), and the counts the host already holds for it, in the
+  order the spans opened, in ``span_log()``.  While no profiler records, a
+  span does nothing: no range, no record;
+* ``trace(log_dir)``: a ``torch.profiler`` trace of a block (the host, and
+  the card when one is present), written as a Chrome trace (open it in
+  ``chrome://tracing`` or Perfetto);
+* ``MetricsLogger``: per-step scalars to a CSV file.
+
+Span names are chosen so that no ``varsep::`` name is a prefix of another:
+a reader that matches ranges by prefix finds each span alone.
+"""
 
 from __future__ import annotations
 
@@ -11,9 +23,39 @@ import contextlib
 import csv
 import os
 import time
-from typing import Dict
+from collections import deque
+from typing import Dict, List, NamedTuple
 
 import torch
+from torch.profiler import record_function
+
+PREFIX = "varsep::"
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    counts: Dict[str, int]
+
+
+# one record a span opened under the profiler, the newest 2**16, oldest first
+LOG: deque = deque(maxlen=2**16)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, **counts: int):
+    """A span named ``name`` around the ``with`` block, recorded only while
+    the profiler records (one flag check otherwise).  ``counts``: Python ints
+    the host already holds (no span reads the device)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    LOG.append(SpanRecord(name, counts))
+    return record_function(PREFIX + name)
+
+
+def span_log() -> List[SpanRecord]:
+    """The log's records, oldest first."""
+    return list(LOG)
 
 
 @contextlib.contextmanager
@@ -60,25 +102,3 @@ class MetricsLogger:
             self._file.close()
             self._file = None
             self._writer = None
-
-
-class StepTimer:
-    """Rolling per-step wall-clock statistics (samples/sec)."""
-
-    def __init__(self, batch_size: int):
-        self.batch_size = batch_size
-        self._last = time.perf_counter()
-        self.steps = 0
-        self.elapsed = 0.0
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        dt = now - self._last
-        self._last = now
-        self.steps += 1
-        self.elapsed += dt
-        return dt
-
-    @property
-    def samples_per_sec(self) -> float:
-        return self.steps * self.batch_size / self.elapsed if self.elapsed else 0.0
