@@ -11,7 +11,9 @@ probes the rollout's stability (``diagnose``, ``--monitor_stability``) and
 drives the operations tooling; then trains data- and tensor-parallel and
 evaluates and serves over a mesh, as far as one card can show; then runs
 the port's benchmark and measurement tools; then imports a reference
-experiment, serves it and exports it back.
+experiment, serves it and exports it back; then holds the decoder's
+transposed-conv kernel against its plain version and cuDNN at the serving
+and an Evaluator's shapes.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -338,6 +340,18 @@ result line is printed):
        test split (12d's route) with the same launches; ``cli.test_sst``
        from the files on phase 13's experiment: the four means bitwise the
        in-memory eval's (13d's route), 0 launches.
+19. the DCGAN decoder's transposed convs through ``ops/transposed_conv.py`` (f32,
+    eval, no grad: the route ``DCGAN64Decoder`` takes on the card), on the seed-0
+    flagship's own codes at the serving shape (B 64 x 100 = 6,400 frames) and an
+    Evaluator's (B 16 x 10): each stage against the plain version in f64 on the CPU
+    (the serving shape's first 64 frames) and against cuDNN's f32
+    ``F.conv_transpose2d`` + BatchNorm + activation, TF32 off; its time beside its
+    bound (3xTF32 at a third of the dense TF32 rate, the frame stage's f32 FMAs, or
+    its bytes), the plain version's time and that library path's (``library_ms``,
+    which the port never calls on this path); 5 launches a B 64 x 100 request (one
+    decode fold) and 0 in an f32 train step; a padded request's frames bitwise the
+    unpadded request's first rows; and the serving cell's ``frame_gap`` on 12
+    seeds through ``benchmark/calibrate.py``, at most a fifth of its limit.
 Each phase, and each part of phases 14, 15 and 16, prints its seconds on a line
 of its own; a line before the JSON lines lists every phase's seconds.
 
@@ -351,8 +365,8 @@ times at the chairs shape, and the cluster kernel's ``taxibj_*`` times at
 B 128 x 8, its launches on phase 14's paths in ``launches_ops``, on
 phase 15's paths in ``launches_parallel``, in phase 16's programs in
 ``launches_bench``, on phase 17's in ``launches_import`` and on phase 18's
-in ``launches_hdf5``); the last is ``{"ok":
-true, "device": {...}}``.
+in ``launches_hdf5``), and one for the decoder kernel (phase 19's launches, gaps and
+times at both shapes); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -371,6 +385,7 @@ import os
 import shutil
 import signal
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -390,6 +405,7 @@ from spatiotemporal_variable_separation_tpu_torch.bench import (
     step_flops,
 )
 from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
+from spatiotemporal_variable_separation_tpu_torch.core.activations import activation
 from spatiotemporal_variable_separation_tpu_torch.cli import diagnose as cli_diagnose
 from spatiotemporal_variable_separation_tpu_torch.cli import export_torch as cli_export_torch
 from spatiotemporal_variable_separation_tpu_torch.cli import gen_synthetic as cli_gen_synthetic
@@ -467,6 +483,11 @@ from spatiotemporal_variable_separation_tpu_torch.ops.rollout import (
     stream_library,
 )
 from spatiotemporal_variable_separation_tpu_torch.ops.ssim import ssim_map, ssim_per_frame
+from spatiotemporal_variable_separation_tpu_torch.ops.transposed_conv import (
+    BatchNormStats,
+    transposed_conv,
+    transposed_conv_reference,
+)
 from spatiotemporal_variable_separation_tpu_torch.serve import Forecaster
 from spatiotemporal_variable_separation_tpu_torch.tools import (
     bench_horizon_remat,
@@ -4221,6 +4242,219 @@ def phase17_only(dev=None) -> None:
         print(json.dumps(migrated_experiment(dev, work, libs)))
 
 
+# -- phase 19: the decoder's transposed-conv kernel --------------------------------------
+
+# The serving shape (B 64 x 100 frames, one eval decode fold) and an Evaluator's (B 16 x
+# 10); the f64 plain version on the CPU runs on the first DECODER_F64_FRAMES frames of
+# the serving shape (all of it is ~1.3 TFLOP), all frames of the Evaluator's.  The
+# frames are the seed-0 model's, step-major: the first 64 are step 0's.  By the late
+# steps its T codes reach ~1e7 (see ROLLOUT_REL_TOL), where any f32 sum order moves a
+# sigmoid output near its midpoint visibly (the kernel and cuDNN part by up to ~2e-2 of
+# a frame there): the last 64 frames' gaps to f64, the kernel's and cuDNN's, are
+# printed beside, and not held to a limit.
+DECODER_SHAPES = {"serving": B * N_FORECAST, "evaluator": EVAL_B * 10}
+DECODER_F64_FRAMES = 64
+# A stage's output against the f64 plain version, relative to the stage's largest
+# output: 3xTF32 keeps ~22 bits of each operand and the K tiles' sums are added in
+# f32, so the kernel errs as an f32 product does (on an H100: the kernel 1.3e-7 to
+# 4.7e-7, cuDNN's f32 path 1.4e-7 to 7.7e-7 at both shapes; one TF32 product ~1e-4,
+# and 3xTF32 with every K tile summed by the tensor cores 1.5e-5 at K 2,048).
+DECODER_STAGE_TOL = 2e-6
+# The serving cell's frame_gap over its calibration seeds: a fifth of its limit (5e-5).
+DECODER_FRAME_GAP_TOL = 1e-5
+SERVE_CALIBRATION_SEEDS = (11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 2147483659, 3000000017)
+TF32_PEAK = 494.7e12  # dense TF32 on an H100 SXM; 3xTF32 does a third of it
+
+
+def decoder_stages(model) -> list:
+    """(name, block, act, NCHW out) of each stage of a DCGAN64Decoder, as its kernel
+    route runs them."""
+    dec = model.decoder
+    blocks = [("first_upconv", dec.first_upconv), ("up_0", dec.up_0), ("up_1", dec.up_1),
+              ("up_2", dec.up_2), ("to_frame", dec.to_frame)]
+    return [(name, block, dec.last_activation if name == "to_frame" else block.act_name,
+             name == "to_frame") for name, block in blocks]
+
+
+def stage_cost(block, x: torch.Tensor) -> tuple:
+    """(FLOPs, bytes read and written once) of one stage on NHWC input x."""
+    n, h, w, cin = x.shape
+    cout = block.conv.weight.shape[1]
+    out_pixels = n * 16 if h == 1 else n * 4 * h * w
+    flops = 2 * out_pixels * cout * cin * (1 if h == 1 else 4)  # taps an output pixel
+    nbytes = 4 * (x.numel() + block.conv.weight.numel() + out_pixels * cout)
+    return flops, nbytes
+
+
+def decoder_kernel_stages(model, z: torch.Tensor, f64_frames: int, flops_peak: float,
+                          bw_peak: float) -> dict:
+    """Each stage of the seed-0 flagship's decoder on codes z, through the kernel: its
+    gap to the f64 plain version on the CPU (first f64_frames frames) and to cuDNN's
+    f32 F.conv_transpose2d + BatchNorm + activation on the card, and the times of
+    the kernel, the plain version and that library path beside the stage's bound."""
+    out = {}
+    h = z.reshape(z.shape[0], 1, 1, z.shape[-1]).contiguous()
+    for name, block, act, nchw in decoder_stages(model):
+        conv = block.conv
+        stride, padding = conv.stride[0], conv.padding[0]
+        bn = block.bn
+        stats = None if bn is None else BatchNormStats(bn.running_mean, bn.running_var,
+                                                       bn.weight, bn.bias, bn.eps)
+        run = lambda: block.fused_transposed(h, act=act, out_nchw=nchw)  # noqa: E731
+        got = run()
+
+        def library():
+            y = torch.nn.functional.conv_transpose2d(h.permute(0, 3, 1, 2), conv.weight,
+                                                     conv.bias, stride=stride, padding=padding)
+            if stats is not None:
+                y = torch.nn.functional.batch_norm(y, stats.mean, stats.var, stats.weight,
+                                                   stats.bias, False, 0.0, stats.eps)
+            return activation(act)(y)
+
+        def plain():
+            return transposed_conv_reference(h, conv.weight, conv.bias, stats, act,
+                                             stride=stride, padding=padding, out_nchw=nchw)
+
+        lib = library()
+        lib = lib if nchw else lib.permute(0, 2, 3, 1)
+        scale = float(lib.abs().max())
+        f64 = lambda t: t.detach().double().cpu()  # noqa: E731
+        ref = transposed_conv_reference(
+            f64(h[:f64_frames]), f64(conv.weight), f64(conv.bias),
+            None if stats is None else BatchNormStats(*(f64(v) for v in stats[:4]), stats.eps),
+            act, stride=stride, padding=padding, out_nchw=nchw)
+        gap_f64 = float((f64(got[:f64_frames]) - ref).abs().max()) / float(ref.abs().max())
+        gap_lib = float((got - lib).abs().max()) / scale
+        late = transposed_conv_reference(
+            f64(h[-f64_frames:]), f64(conv.weight), f64(conv.bias),
+            None if stats is None else BatchNormStats(*(f64(v) for v in stats[:4]), stats.eps),
+            act, stride=stride, padding=padding, out_nchw=nchw)
+        late_scale = float(late.abs().max())
+        gap_late = float((f64(got[-f64_frames:]) - late).abs().max()) / late_scale
+        gap_late_lib = float((f64(lib[-f64_frames:]) - late).abs().max()) / late_scale
+        flops, nbytes = stage_cost(block, h)
+        frame = conv.weight.shape[1] <= 4 and stride == 2
+        peak = flops_peak if frame else TF32_PEAK / 3
+        bound_ms = max(flops / peak, nbytes / bw_peak) * 1e3
+        ms = cuda_ms(run, reps=5, inner=3)
+        out[name] = {"shape": list(h.shape), "gap_f64": gap_f64, "gap_cudnn": gap_lib,
+                     "gap_f64_last": gap_late, "cudnn_gap_f64_last": gap_late_lib, "ms": ms,
+                     "plain_ms": cuda_ms(plain, reps=3, inner=2),
+                     "library_ms": cuda_ms(library, reps=3, inner=2), "bound_ms": bound_ms,
+                     "bound_by": ("f32 FMAs" if frame else "3xTF32")
+                     if flops / peak >= nbytes / bw_peak else "bytes",
+                     "tflops": flops / ms / 1e9}
+        row = out[name]
+        print(f"  {name} {tuple(h.shape)} -> {tuple(got.shape)}: against f64 "
+              f"plain {gap_f64:.2e} (tolerance {DECODER_STAGE_TOL:g}), against cuDNN f32 "
+              f"{gap_lib:.2e}; last {f64_frames} frames against f64: kernel {gap_late:.2e}, "
+              f"cuDNN {gap_late_lib:.2e}; kernel {ms:.4f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s), bound {bound_ms:.4f} ms by {row['bound_by']} "
+              f"({bound_ms / ms:.1%}), plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms")
+        check(bool(torch.isfinite(got).all()), f"non-finite {name} output")
+        check(gap_f64 <= DECODER_STAGE_TOL, f"{name}: kernel against the f64 plain version")
+        h = got
+        del lib, ref
+    out["total_ms"] = sum(v["ms"] for v in out.values() if isinstance(v, dict))
+    out["library_total_ms"] = sum(v["library_ms"] for v in out.values() if isinstance(v, dict))
+    return out
+
+
+def serve_calibration_gaps() -> list:
+    """The serving cell's frame_gap on its calibration seeds, each from
+    ``benchmark/calibrate.py`` (its set-up, a 2 s window and the comparison a run makes)."""
+    cmd = [sys.executable, "benchmark/calibrate.py", "--workload", "mnist_dcgan.serve_f32",
+           "--mode", "program", "--seconds", "2", "--seeds",
+           *map(str, SERVE_CALIBRATION_SEEDS)]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
+    check(run.returncode == 0, f"calibrate.py exited {run.returncode}: {run.stderr[-2000:]}")
+    lines = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    check(len(lines) == len(SERVE_CALIBRATION_SEEDS), "a calibrate.py line a seed")
+    return [line["numbers"]["frame_gap"] for line in lines]
+
+
+def decoder_kernel_phase(dev) -> dict:
+    """Phase 19: the DCGAN decoder's transposed convs through ``ops/transposed_conv.py``."""
+    flops_peak, bw_peak = card_peaks(torch.cuda.get_device_name(dev))[:2]
+    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
+    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(19)
+    cond = rng.random((B, cfg.nt_cond) + cfg.frame_shape, dtype=np.float32)
+    cond_dev = torch.from_numpy(cond).to(dev)
+    result = {}
+    with torch.inference_mode():
+        s_code = model.encode_s(cond_dev)
+        t_codes = model.get_forecast(cond_dev, N_FORECAST)[1].transpose(0, 1)  # (n, B, code)
+        for label, frames in DECODER_SHAPES.items():
+            n = frames // B if frames % B == 0 else None
+            if n is not None:  # B 64 x 100: every (S, T_t) pair of the forecast
+                z_t, z_s = t_codes.reshape(-1, t_codes.shape[-1]), s_code.repeat(n, 1)
+            else:  # B 16 x 10: the first 16 windows' first 10 steps
+                z_t = t_codes[:10, :EVAL_B].reshape(-1, t_codes.shape[-1])
+                z_s = s_code[:EVAL_B].repeat(10, 1)
+            z = torch.cat([z_s, z_t], dim=1).contiguous()
+            print(f"decoder stages at the {label} shape ({z.shape[0]} frames):")
+            result[label] = decoder_kernel_stages(
+                model, z, min(DECODER_F64_FRAMES, frames) if label == "serving" else frames,
+                flops_peak, bw_peak)
+            print(f"  kernel {result[label]['total_ms']:.3f} ms over the five stages, cuDNN's "
+                  f"library path {result[label]['library_total_ms']:.3f} ms")
+    fc = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
+    transposed_conv.launches = 0
+    full = fc.predict(cond)
+    result["launches_request"] = transposed_conv.launches
+    print(f"transposed_conv launches in one B {B} x {N_FORECAST} request: "
+          f"{result['launches_request']} (one decode fold, one a stage)")
+    check(result["launches_request"] == 5, "five launches a decode fold")
+    small = REQUESTS[1]
+    padded = fc.predict(cond[:small])
+    result["padded_bitwise"] = bool(np.array_equal(padded, full[:small]))
+    print(f"a {small}-window request's frames bitwise the {B}-window request's first rows, "
+          f"default cuDNN algorithms: {result['padded_bitwise']}")
+    check(result["padded_bitwise"], "padded rows differ from the unpadded request's")
+    train_cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32",
+                                 fused_loss=True, batch_size=TRAIN_CHECK_B)
+    train_model = build_separable_network(train_cfg, dev, torch.Generator().manual_seed(0))
+    opt = make_optimizer(train_model.parameters(), train_cfg, steps_per_epoch=100)
+    state = TrainState(model=train_model, optimizer=opt, generator=torch.Generator())
+    seq = torch.from_numpy(moving_squares(TRAIN_CHECK_B, train_cfg.nt_cond + train_cfg.nt_pred,
+                                          seed=19)).to(dev)
+    transposed_conv.launches = 0
+    make_train_step(train_model, train_cfg, opt)(state, seq[:, :train_cfg.nt_cond],
+                                                 seq[:, train_cfg.nt_cond:],
+                                                 t_random=TRAIN_CHECK_T_RANDOM)
+    torch.cuda.synchronize()
+    result["launches_train_step"] = transposed_conv.launches
+    print(f"transposed_conv launches in one f32 train step: {result['launches_train_step']}")
+    check(result["launches_train_step"] == 0, "the train step launched the decoder kernel")
+    del fc, model, train_model, state
+    torch.cuda.empty_cache()
+    gaps = serve_calibration_gaps()
+    result["serve_frame_gaps"] = gaps
+    print(f"serving cell frame_gap on seeds {list(SERVE_CALIBRATION_SEEDS)}: max "
+          f"{max(gaps):.3e} (tolerance {DECODER_FRAME_GAP_TOL:g}; the cell's limit 5e-05): "
+          + ", ".join(f"{g:.3e}" for g in gaps))
+    check(max(gaps) <= DECODER_FRAME_GAP_TOL, "the serving cell's frame_gap")
+    return result
+
+
+def phase19_only(dev=None) -> None:
+    """Phase 19 alone, a quicker run on the card than the whole script::
+
+        python3 -c "import chip_smoke; chip_smoke.phase19_only()"
+    """
+    dev = torch.device("cuda:0") if dev is None else dev
+    print(f"nvidia-smi: {nvidia_smi()}")
+    torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    t = time.perf_counter()
+    result = decoder_kernel_phase(dev)
+    print(f"phase 19: {time.perf_counter() - t:.1f} s")
+    print(json.dumps(result))
+
+
 def check_kernel_cases(cases: dict) -> dict:
     """Phase 3: each case through the kernel its plan names (the serving,
     chairs and ragged-slice cases also through the streaming kernel,
@@ -4387,9 +4621,10 @@ def main() -> None:
         check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"forecast shape for {b}")
         check(bool(np.isfinite(a).all()), f"non-finite forecast for {b}")
         check(bool(((a >= 0) & (a <= 1)).all()), f"sigmoid forecast outside [0, 1] for {b}")
-        # cuDNN's default transposed-conv algorithms accumulate with atomics:
-        # the same request twice differs in the last bits, so padded rows
-        # are held to the frame tolerance here and to bitwise identity below.
+        # Padded rows are held to the frame tolerance here and to bitwise
+        # identity below with cudnn.deterministic (the f32 decoder runs the
+        # port's own kernel, which uses no atomics; phase 19 holds it bitwise
+        # with cuDNN's default algorithms too).
         check_frames(a, answers[B][:b], f"padded {b}-window answer vs the {B}-window rows")
     torch.backends.cudnn.deterministic = True
     exact = {b: fc.predict(cond[:b]) for b in REQUESTS[:2]}
@@ -4561,6 +4796,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         migrated = migrated_experiment(dev, work, libs)
     phase_done(17, quiet=True)
+
+    # -- 19. the decoder's transposed-conv kernel ----------------------------------------
+    decoder = decoder_kernel_phase(dev)
+    phase_done(19)
     work89.cleanup()
     print("phase seconds: " + ", ".join(f"{k} {v}" for k, v in seconds.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
@@ -4678,7 +4917,18 @@ def main() -> None:
             f"{len(REQUESTS)} requests (17c)": migrated["launches"][v],
             "import_torch, export_torch and the second import (17b, 17d)":
                 migrated["converter_launches"][v]},
-    } for v in ("cluster", "stream")]}))
+    } for v in ("cluster", "stream")] + [{
+        "name": "transposed_conv",
+        "route": "cuda",
+        "source": "spatiotemporal_variable_separation_tpu_torch/csrc/transposed_conv.cu",
+        "replaces": None,
+        "launches": decoder["launches_request"],
+        "launches_path": f"serving, one B {B} x {N_FORECAST} request (one decode fold)",
+        "launches_train_step": decoder["launches_train_step"],
+        "padded_bitwise": decoder["padded_bitwise"],
+        "serve_frame_gaps": decoder["serve_frame_gaps"],
+        **{f"{shape}_{k}": v for shape in DECODER_SHAPES for k, v in decoder[shape].items()},
+    }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))
 

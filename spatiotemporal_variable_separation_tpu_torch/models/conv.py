@@ -9,7 +9,11 @@ package's ``models/conv.py``; reference ``var_sep/networks/conv.py``).
   U-Net skip concatenation; renders one NCHW frame per (S, T) pair.  Its
   ``stack_to_frames`` and ``frame_to_output`` convert between that layout
   and the JAX package's ``(..., H, W, C)``: every decoder owns its layout,
-  and ``SeparableNetwork`` asks the decoder instead of assuming one.
+  and ``SeparableNetwork`` asks the decoder instead of assuming one.  In
+  eval mode, without autograd, in f32 on the card (``kernel_route``), its
+  five stages run in the hand-written kernel of ``ops/transposed_conv.py``,
+  one launch each with its BatchNorm and activation, NHWC between them;
+  everywhere else through ``F.conv_transpose2d`` as ``ConvBlock`` computes.
 * ``VGG64Encoder``/``VGG64Decoder`` (JAX ``conv.py:78-211``, reference
   ``conv.py:127-171, 267-320``): 3x3 conv stages with 2x max pooling down
   to a 4x4 valid conv to the code; the mirror upsamples by nearest repeats
@@ -45,6 +49,18 @@ from spatiotemporal_variable_separation_tpu_torch.models.layers import (
     merge_time,
     upsample_nearest_2x,
 )
+from spatiotemporal_variable_separation_tpu_torch.ops.transposed_conv import EPILOGUE_ACTS
+
+
+def kernel_route(training: bool, grad_enabled: bool, dtype: torch.dtype,
+                 device: torch.device) -> bool:
+    """Whether ``DCGAN64Decoder`` runs its transposed convs through the
+    hand-written kernel (``ops/transposed_conv.py``): in eval mode, without
+    autograd, in f32, on the card.  Training needs autograd and batch
+    statistics, which the kernel does not give; bf16 and the CPU keep
+    ``F.conv_transpose2d``."""
+    return (not training and not grad_enabled and dtype == torch.float32
+            and device.type == "cuda")
 
 
 def mix_codes(mixing: str, z1: torch.Tensor, z2: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -133,6 +149,7 @@ class DCGAN64Decoder(NCHWDecoder):
         super().__init__()
         self.skip = skip
         self.mixing = mixing
+        self.last_activation = last_activation
         self.last_act = activation(last_activation)
         snf = (nf if skip_nf is None else skip_nf) if skip else 0
         kw = dict(init_type=init_type, init_gain=init_gain, generator=generator,
@@ -150,6 +167,9 @@ class DCGAN64Decoder(NCHWDecoder):
                 skip: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         _check_skip(self.skip, skip)
         z = mix_codes(self.mixing, z1, z2)
+        if kernel_route(self.training, torch.is_grad_enabled(), self.first_upconv.dtype,
+                        z.device):
+            return self._forward_fused(z, skip)
         h = self.first_upconv(z.reshape(z.shape[0], z.shape[-1], 1, 1))
         for i, stage in enumerate((self.up_0, self.up_1, self.up_2)):
             if skip is not None:
@@ -158,6 +178,24 @@ class DCGAN64Decoder(NCHWDecoder):
         if skip is not None:
             h = torch.cat([h, skip[3].to(h.dtype)], dim=1)
         return self.last_act(self.to_frame(h))
+
+    def _forward_fused(self, z: torch.Tensor, skip) -> torch.Tensor:
+        """The eval forward in five launches of ``ops/transposed_conv.py``, one
+        a stage with its BatchNorm and activation: NHWC between stages (skip
+        maps joined on the channel axis as in ``forward``), NCHW frames out.
+        The last activation runs in the last launch where its epilogue has it."""
+        fused_last = self.last_activation in EPILOGUE_ACTS
+        h = z.to(torch.float32).reshape(z.shape[0], 1, 1, z.shape[-1])
+        blocks = (self.first_upconv, self.up_0, self.up_1, self.up_2)
+        for i, block in enumerate(blocks):
+            if skip is not None and i > 0:
+                h = torch.cat([h, skip[i - 1].to(h.dtype).permute(0, 2, 3, 1)], dim=3)
+            h = block.fused_transposed(h.contiguous())
+        if skip is not None:
+            h = torch.cat([h, skip[3].to(h.dtype).permute(0, 2, 3, 1)], dim=3)
+        frames = self.to_frame.fused_transposed(
+            h.contiguous(), act=self.last_activation if fused_last else None, out_nchw=True)
+        return frames if fused_last else self.last_act(frames)
 
 
 def _conv_stack(parent: nn.Module, prefix: str, in_c: int, widths: Sequence[int],

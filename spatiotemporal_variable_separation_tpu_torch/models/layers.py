@@ -3,7 +3,9 @@
 Torch counterparts of the JAX package's ``models/layers.py`` (reference
 ``var_sep/networks/conv.py:41-60`` make_conv_block, ``mlp.py:24-75``):
 
-* ``ConvBlock`` = Conv2d/ConvTranspose2d -> optional BatchNorm -> activation,
+* ``ConvBlock`` = Conv2d/ConvTranspose2d -> optional BatchNorm -> activation
+  (``fused_transposed``: a transposed block in eval mode as one call of
+  ``ops/transposed_conv.py``, on an NHWC input),
 * ``LinBlock``  = pre-activation Linear,
 * ``MLP``       = stack of LinBlocks (first layer without activation),
 * ``BatchNorm`` = BatchNorm2d with flax's train-mode arithmetic, over the
@@ -47,6 +49,10 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from spatiotemporal_variable_separation_tpu_torch.core.activations import activation
 from spatiotemporal_variable_separation_tpu_torch.core.inits import init_layer_
+from spatiotemporal_variable_separation_tpu_torch.ops.transposed_conv import (
+    BatchNormStats,
+    transposed_conv,
+)
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -179,6 +185,7 @@ class ConvBlock(nn.Module):
             init_layer_(self.bn, init_type, init_gain, generator)
         self.transpose = transpose
         self.dtype = dtype
+        self.act_name = act
         self.act = activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +196,19 @@ class ConvBlock(nn.Module):
         if self.bn is not None:
             x = self.bn(x).to(dt)
         return self.act(x)
+
+    def fused_transposed(self, x: torch.Tensor, act: Optional[str] = None,
+                         out_nchw: bool = False) -> torch.Tensor:
+        """This transposed conv, its BatchNorm on the running statistics and
+        ``act`` (default: its own) in one call of ``ops/transposed_conv.py``,
+        on an NHWC input; NHWC out, or NCHW with ``out_nchw``.  Eval mode
+        only: it neither computes nor updates batch statistics."""
+        c, bn = self.conv, self.bn
+        stats = None if bn is None else BatchNormStats(bn.running_mean, bn.running_var,
+                                                       bn.weight, bn.bias, bn.eps)
+        return transposed_conv(x, _whole(c.weight), c.bias, stats,
+                               self.act_name if act is None else act, stride=c.stride[0],
+                               padding=c.padding[0], out_nchw=out_nchw)
 
 
 class LinBlock(nn.Module):

@@ -34,6 +34,10 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# The kernels a served request runs, built side by side in one call whichever
+# is loaded first, so that a process pays one nvcc's time for both.
+SERVING_KERNELS = ("mlp_resnet_rollout_cluster", "transposed_conv")
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
 
@@ -99,10 +103,12 @@ def build(names: Optional[Iterable[str]] = None,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu``, built at first use (with the
+    other of ``SERVING_KERNELS`` beside it, if it is one of them)."""
     with _LOAD_LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            group = SERVING_KERNELS if name in SERVING_KERNELS else (name,)
+            lib = ctypes.CDLL(str(build(group)[name]))
             _LOADED[name] = lib
         return lib

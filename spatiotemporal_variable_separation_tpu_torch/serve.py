@@ -8,14 +8,18 @@ one model in eval mode on one device and answers requests of up to
   is padded with copies of its last window and sliced back (the JAX
   package's pad-and-slice contract, ``serve.py:104-118``).  Eval-mode rows do
   not interact, so a padded answer equals the unpadded one row for row --
-  bitwise on the CPU, and on the card with
-  ``torch.backends.cudnn.deterministic = True``.  cuDNN's default
-  transposed-convolution algorithms accumulate with atomics, so there two
-  calls on the same input may differ in the last bits (measured on an H100
-  80GB HBM3 at 700 W, B 64 x 100 frames: max 6.3e-3, mean 1.4e-8, with
-  deterministic algorithms 123 ms a call instead of 88 ms);
+  bitwise on the CPU, and bitwise on the card in f32: there the decoder's
+  transposed convs run in the port's own kernel, which sums without atomics
+  (measured on an H100 80GB HBM3 at 700 W, B 64 x 100 frames: a 17-window
+  request's frames are the 64-window request's first rows bit for bit, with
+  cuDNN's default algorithms).  Under ``mixed`` and ``bf16`` the decoder
+  stays on cuDNN, whose default transposed-convolution algorithms accumulate
+  with atomics: there two calls on the same input may differ in the last
+  bits, unless ``torch.backends.cudnn.deterministic = True``;
 * an f32 T rollout runs in a hand-written CUDA kernel (``ops/rollout.py``
-  picks it from the shapes), the encoders and decoder in PyTorch;
+  picks it from the shapes), and so do the f32 decoder's transposed convs
+  with their BatchNorm and activation (``ops/transposed_conv.py``); the
+  encoders, and the decoder under ``mixed`` and ``bf16``, run in PyTorch;
 * precision ``f32``, ``mixed`` or ``bf16``: under ``mixed`` the encoders
   and decoder compute in bf16 and the T code is cast to f32 for the same
   rollout kernel, as the JAX package's ``mixed`` integrator runs in f32.
