@@ -349,9 +349,12 @@ result line is printed):
     bound (3xTF32 at a third of the dense TF32 rate, the frame stage's f32 FMAs, or
     its bytes), the plain version's time and that library path's (``library_ms``,
     which the port never calls on this path); 5 launches a B 64 x 100 request (one
-    decode fold) and 0 in an f32 train step; a padded request's frames bitwise the
-    unpadded request's first rows; and the serving cell's ``frame_gap`` on 12
-    seeds through ``benchmark/calibrate.py``, at most a fifth of its limit.
+    decode fold) and 0 in an f32 train step; requests of 1, 8, 17, 33 and 63
+    windows (the encoders padded to B 64, the rollout and the decoder on the rows
+    asked for): their frames bitwise the 64-window request's first rows, their
+    ``rows_computed`` the rows asked for, 5 launches and 1 rollout launch each, and
+    the seconds they take; and the serving cell's ``frame_gap`` on 12 seeds through
+    ``benchmark/calibrate.py``, at most a fifth of its limit.
 Each phase, and each part of phases 14, 15 and 16, prints its seconds on a line
 of its own; a line before the JSON lines lists every phase's seconds.
 
@@ -510,6 +513,7 @@ from spatiotemporal_variable_separation_tpu_torch.utils import export as export_
 from spatiotemporal_variable_separation_tpu_torch.utils.compile_cache import (
     enable_compilation_cache,
 )
+from spatiotemporal_variable_separation_tpu_torch.utils.profiling import span_log
 from spatiotemporal_variable_separation_tpu_torch.utils.transplant import (
     REFERENCE_FILES,
     reference_units,
@@ -518,6 +522,7 @@ from spatiotemporal_variable_separation_tpu_torch.utils.transplant import (
 
 B, N_FORECAST = 64, 100
 REQUESTS = (64, 17, 1)  # windows per request: full, padded, single
+ROW_REQUESTS = (1, 8, 17, 33, 63)  # phase 19: smaller requests against the full one
 # Kernel against plain, per step and relative to max |t_k| at that step: T
 # grows ~1.2x a step at random init (to ~1e7-1e9 by step 99), so absolute
 # error is the wrong measure.  Both are f32 sums in another order; an f32
@@ -4407,12 +4412,29 @@ def decoder_kernel_phase(dev) -> dict:
     print(f"transposed_conv launches in one B {B} x {N_FORECAST} request: "
           f"{result['launches_request']} (one decode fold, one a stage)")
     check(result["launches_request"] == 5, "five launches a decode fold")
-    small = REQUESTS[1]
-    padded = fc.predict(cond[:small])
-    result["padded_bitwise"] = bool(np.array_equal(padded, full[:small]))
-    print(f"a {small}-window request's frames bitwise the {B}-window request's first rows, "
-          f"default cuDNN algorithms: {result['padded_bitwise']}")
-    check(result["padded_bitwise"], "padded rows differ from the unpadded request's")
+    # Smaller requests: the encoders run the padded batch, the rollout and the decoder
+    # only the rows asked for (``rows_computed``, read from the span log, which a
+    # profiler on the host alone fills).
+    t_rows = time.perf_counter()
+    result["rows_bitwise"], result["rows_launches"] = {}, {}
+    for b in ROW_REQUESTS:
+        transposed_conv.launches = mlp_resnet_rollout.launches = 0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            part = fc.predict(cond[:b])
+        (record,) = [r for r in span_log()[-4:] if r.name == "predict"]
+        launches = (transposed_conv.launches, mlp_resnet_rollout.launches)
+        result["rows_bitwise"][b] = bool(np.array_equal(part, full[:b]))
+        result["rows_launches"][b] = launches
+        print(f"a {b}-window request: rows computed {record.counts['rows_computed']}, frames "
+              f"bitwise the {B}-window request's first rows (default cuDNN algorithms) "
+              f"{result['rows_bitwise'][b]}, transposed_conv launches {launches[0]}, rollout "
+              f"launches {launches[1]}")
+        check(record.counts == {"rows": b, "rows_computed": b},
+              f"a {b}-window request computed {record.counts}")
+        check(result["rows_bitwise"][b], f"a {b}-window request differs from the full one's rows")
+        check(launches == (5, 1), f"a {b}-window request's launches {launches}, not (5, 1)")
+    result["padded_bitwise"] = all(result["rows_bitwise"].values())
+    print(f"requests of {list(ROW_REQUESTS)} windows: {time.perf_counter() - t_rows:.1f} s")
     train_cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32",
                                  fused_loss=True, batch_size=TRAIN_CHECK_B)
     train_model = build_separable_network(train_cfg, dev, torch.Generator().manual_seed(0))
@@ -4926,6 +4948,8 @@ def main() -> None:
         "launches_path": f"serving, one B {B} x {N_FORECAST} request (one decode fold)",
         "launches_train_step": decoder["launches_train_step"],
         "padded_bitwise": decoder["padded_bitwise"],
+        "rows_bitwise": decoder["rows_bitwise"],
+        "rows_launches": decoder["rows_launches"],
         "serve_frame_gaps": decoder["serve_frame_gaps"],
         **{f"{shape}_{k}": v for shape in DECODER_SHAPES for k, v in decoder[shape].items()},
     }]}))

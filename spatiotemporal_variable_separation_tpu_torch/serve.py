@@ -1,21 +1,31 @@
-"""Serving: fixed-signature forecasting on the card.
+"""Serving: forecasting on the card at a fixed encoder batch.
 
 Torch counterpart of the JAX package's ``serve.py``.  A ``Forecaster`` holds
 one model in eval mode on one device and answers requests of up to
 ``batch_size`` conditioning windows with ``n_forecast`` frames each:
 
-* every call runs at the fixed (batch, horizon) signature; a smaller request
-  is padded with copies of its last window and sliced back (the JAX
-  package's pad-and-slice contract, ``serve.py:104-118``).  Eval-mode rows do
-  not interact, so a padded answer equals the unpadded one row for row --
-  bitwise on the CPU, and bitwise on the card in f32: there the decoder's
-  transposed convs run in the port's own kernel, which sums without atomics
-  (measured on an H100 80GB HBM3 at 700 W, B 64 x 100 frames: a 17-window
-  request's frames are the 64-window request's first rows bit for bit, with
-  cuDNN's default algorithms).  Under ``mixed`` and ``bf16`` the decoder
-  stays on cuDNN, whose default transposed-convolution algorithms accumulate
-  with atomics: there two calls on the same input may differ in the last
-  bits, unless ``torch.backends.cudnn.deterministic = True``;
+* on one device, a request of b windows is padded to ``batch_size`` with
+  copies of its last window only for the encoders, whose cuDNN convolutions
+  then always run at one shape (one plan and algorithm choice, so S and T_0
+  come out in the same bits whatever b is).  The codes are cut back to the b
+  rows asked for, and only those rows are rolled out and decoded: the
+  rollout kernel and the decoder's kernel plan from the shape of each call.
+  The JAX package pads the whole forecast instead (its pad-and-slice
+  contract, ``serve.py:104-118``, one compiled signature for ``jit``).
+  Eval-mode rows do not interact, so a b-window answer equals the first b
+  rows of a full request's answer, bitwise on the card in f32: there the
+  rollout and the decoder's transposed convs run in the port's own kernels,
+  which sum without atomics (measured for the flagship on an H100 80GB HBM3
+  at 700 W, 100 frames, the cluster rollout kernel: requests of 1, 8, 17, 33
+  and 63 windows are a 64-window request's first rows bit for bit, with
+  cuDNN's default algorithms).  On the CPU, where the plain rollout's
+  one-row product (MKL's) and oneDNN's transposed convs sum in another order
+  at other row counts, the frames may differ in the last bits (1.2e-7 at
+  most at the tests' shapes).  Under ``mixed`` and ``bf16`` the decoder
+  stays on cuDNN: each new row count pays cuDNN's plan choice once a
+  process, and its default transposed-convolution algorithms accumulate with
+  atomics, so two calls on the same input may differ in the last bits,
+  unless ``torch.backends.cudnn.deterministic = True``;
 * an f32 T rollout runs in a hand-written CUDA kernel (``ops/rollout.py``
   picks it from the shapes), and so do the f32 decoder's transposed convs
   with their BatchNorm and activation (``ops/transposed_conv.py``); the
@@ -29,8 +39,9 @@ one model in eval mode on one device and answers requests of up to
 * the device is the card unless the caller asks for the CPU: with no card
   present, constructing a Forecaster without ``device="cpu"`` raises;
 * with a one-process ``mesh`` (``parallel.make_mesh``; JAX ``serve.py:60-75``)
-  it keeps one replica a mesh entry and splits every call's batch evenly
-  over them: each shard runs on its replica (an f32 rollout launches the
+  it keeps one replica a mesh entry and computes the fixed batch for every
+  call, the request padded on the device as above, split evenly over the
+  replicas: each shard runs on its replica (an f32 rollout launches the
   kernel once a shard, planned for the shard's rows) and the frames are
   gathered to the first entry's device in shard order.
 
@@ -64,8 +75,10 @@ from spatiotemporal_variable_separation_tpu_torch.utils.weights import load_flax
 
 
 class Forecaster:
-    """Forecast server for one (batch, horizon) signature on one device, or
-    over the entries of a one-process mesh."""
+    """Forecast server for up to ``batch_size`` windows and one horizon on one
+    device, or over the entries of a one-process mesh.  On one device only
+    the encoders run at ``batch_size`` rows; the rollout and the decoder run
+    the rows asked for.  Over a mesh every call computes ``batch_size`` rows."""
 
     def __init__(self, model: torch.nn.Module, cfg, batch_size: int, n_forecast: int,
                  device=None, mesh=None):
@@ -127,36 +140,62 @@ class Forecaster:
 
     @torch.inference_mode()
     def forecast(self, cond: torch.Tensor) -> torch.Tensor:
-        """One call at the fixed signature: a (batch_size, nt_cond, *frame)
-        tensor on the device -> (batch_size, n_forecast, *frame)."""
+        """One call at the full batch: a (batch_size, nt_cond, *frame) tensor
+        on the device -> (batch_size, n_forecast, *frame), every row encoded,
+        rolled out and decoded (``benchmark`` times it; a mesh splits it)."""
         if self.mesh is None:
             return self.model.get_forecast(cond, self.n_forecast)[0]
         shards = shard_batch(self.mesh, cond)
         outs = [rep.get_forecast(c, self.n_forecast)[0] for rep, c in zip(self.replicas, shards)]
         return torch.cat([o.to(self.device) for o in outs])
 
+    @torch.inference_mode()
+    def _forecast_rows(self, cond: torch.Tensor, rows: int) -> torch.Tensor:
+        """The first ``rows`` rows of ``forecast(cond)``, one device: the
+        encoders run on all of ``cond`` (one shape for cuDNN, so the same bits
+        of S and T_0 for any ``rows``), and only ``rows`` rows are rolled out
+        and decoded."""
+        model = self.model
+        s_full, t_code = model.encode_s(cond), model.encode_t(cond)
+        if rows < cond.shape[0]:
+            if model.skipco:
+                s_full = (s_full[0][:rows], [sk[:rows] for sk in s_full[1]])
+            else:
+                s_full = s_full[:rows]
+            t_code = t_code[:rows]
+        # ``get_forecast`` reads ``cond`` only for a code it is not given
+        return model.get_forecast(cond, self.n_forecast, init_t_code=t_code,
+                                  init_s_code=s_full)[0]
+
     def predict(self, cond: np.ndarray) -> np.ndarray:
         """Forecast ``n_forecast`` frames for up to ``batch_size`` windows.
 
-        ``cond``: (b, nt_cond, *frame) with b <= batch_size; smaller
-        requests are padded to the fixed batch and sliced back.
+        ``cond``: (b, nt_cond, *frame) with b <= batch_size.  The windows are
+        copied to the device as they are and padded there, with copies of the
+        last, to ``batch_size``.  On one device only the encoders run the
+        padded batch; the b rows asked for are rolled out and decoded
+        (``_forecast_rows``).  Over a mesh the whole batch is computed, in
+        equal shards, and sliced back.
         """
         b = cond.shape[0]
         if b > self.batch_size:
             raise ValueError(f"request batch {b} exceeds the served "
                              f"batch {self.batch_size}")
-        # every call computes the fixed batch (under a mesh its equal shards
-        # add up to it): ``rows_computed`` against the ``rows`` asked for
-        with span("predict", rows=b, rows_computed=self.batch_size):
+        # ``rows_computed``: the rows rolled out and decoded.  On one device
+        # the encoders still run the padded batch_size rows, the price of
+        # answers that are bitwise the same for every b: the flagship's
+        # encoders take ~1 ms a request at 64 rows on an H100, of a ~25 ms
+        # mean request.  A mesh's equal shards add up to the fixed batch.
+        rows_computed = b if self.mesh is None else self.batch_size
+        with span("predict", rows=b, rows_computed=rows_computed):
             with span("stage_in"):
-                if b < self.batch_size:
-                    pad = np.repeat(cond[-1:], self.batch_size - b, axis=0)
-                    cond = np.concatenate([cond, pad], axis=0)
                 x = torch.from_numpy(np.ascontiguousarray(cond, dtype=np.float32))
                 x = x.to(self.device)
-            out = self.forecast(x)
+                if b < self.batch_size:
+                    x = torch.cat([x, x[-1:].expand((self.batch_size - b,) + x.shape[1:])])
+            out = self._forecast_rows(x, b) if self.mesh is None else self.forecast(x)[:b]
             with span("copy_back"):
-                return out[:b].float().cpu().numpy()  # numpy has no bf16
+                return out.float().cpu().numpy()  # numpy has no bf16
 
     def benchmark(self, n_iters: int = 50, warmup: int = 5) -> Dict[str, Any]:
         """Steady-state latency of ``forecast`` on a device-resident batch;

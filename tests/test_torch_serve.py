@@ -62,6 +62,93 @@ def test_forecaster_matches_jax(skipco):
         ours.predict(np.concatenate([cond, cond[:1]]))
 
 
+@pytest.fixture(scope="module")
+def served():
+    """(Forecaster, conditioning windows, the full request's answer), f32 on
+    the CPU, a model with and one without ``skipco``, each made once."""
+    made = {}
+
+    def get(skipco):
+        if skipco not in made:
+            kw = dict(SMALL, skipco=skipco)
+            cond = np.random.default_rng(4).random((B, 5, 64, 64, 1), dtype=np.float32)
+            variables = random_variables(jax_build(JaxConfig(**kw)), jnp.asarray(cond), N,
+                                         seed=5)
+            fc = tserve.Forecaster.from_flax_variables(ExperimentConfig(**kw), variables,
+                                                       B, N, device="cpu")
+            made[skipco] = (fc, cond, fc.predict(cond))
+        return made[skipco]
+
+    return get
+
+
+def _codes_seen(fc, monkeypatch) -> list:
+    """The (S, T_0) pairs ``predict`` hands to ``get_forecast``, as it calls it."""
+    seen, get_forecast = [], fc.model.get_forecast
+
+    def recording(cond, n, init_t_code=None, init_s_code=None):
+        seen.append((init_s_code, init_t_code))
+        return get_forecast(cond, n, init_t_code=init_t_code, init_s_code=init_s_code)
+
+    monkeypatch.setattr(fc.model, "get_forecast", recording)
+    return seen
+
+
+def _flat(s_full) -> list:
+    return [s_full[0], *s_full[1]] if isinstance(s_full, tuple) else [s_full]
+
+
+@pytest.mark.parametrize("skipco", [False, True])
+@pytest.mark.parametrize("b", [1, 2, B - 1, B])
+def test_request_is_the_full_answers_rows(served, monkeypatch, skipco, b):
+    """A b-window request (the encoders padded to the batch, the rollout and
+    the decoder on b rows) rolls out and decodes the full request's first b
+    rows of S, its skips and T_0, bit for bit, and so gives the full
+    request's first b rows of frames.  Those are bitwise on the card
+    (``chip_smoke.py`` phase 19); here the plain rollout's one-row product
+    (MKL's) and oneDNN's transposed convs at other batch sizes sum in
+    another order, 1.2e-7 at most at these shapes, held to the 1e-6 of the
+    JAX parity test above."""
+    fc, cond, full = served(skipco)
+    seen = _codes_seen(fc, monkeypatch)
+    whole = fc.predict(cond)
+    part = fc.predict(cond[:b])
+    (s_whole, t_whole), (s_part, t_part) = seen
+    assert t_part.shape[0] == b and torch.equal(t_part, t_whole[:b])
+    assert len(_flat(s_part)) == (5 if skipco else 1)
+    for got, want in zip(_flat(s_part), _flat(s_whole)):
+        assert got.shape[0] == b and torch.equal(got, want[:b])
+    assert np.array_equal(whole, full)
+    assert part.shape == (b, N, 64, 64, 1)
+    np.testing.assert_allclose(part, full[:b], rtol=0, atol=1e-6)
+
+
+def test_encoders_see_the_batch_and_the_rest_the_rows_asked_for(served, monkeypatch):
+    """Only the encoders run the padded batch: the rollout starts from b T
+    codes and the decoder renders b x n frames."""
+    from spatiotemporal_variable_separation_tpu_torch.models import separable
+
+    fc, cond, _ = served(False)
+    seen = {}
+    model = fc.model
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: seen.setdefault(name, []).append(args[0].shape[0]))
+        for name, m in (("Es", model.Es), ("Et", model.Et), ("decoder", model.decoder))]
+    rollout = separable.mlp_resnet_rollout
+
+    def counted(t0, params, n):
+        seen.setdefault("t0", []).append(t0.shape[0])
+        return rollout(t0, params, n)
+
+    monkeypatch.setattr(separable, "mlp_resnet_rollout", counted)
+    try:
+        fc.predict(cond[:3])
+    finally:
+        for h in hooks:
+            h.remove()
+    assert seen == {"Es": [B], "Et": [B], "t0": [3], "decoder": [3 * N]}
+
+
 def test_mixed_forecaster_matches_jax():
     """``mixed``: encoders and decoder in bf16, the T code cast to f32 for the
     rollout (the kernel on the card, its plain version here), against the
