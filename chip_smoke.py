@@ -17,7 +17,15 @@ and an Evaluator's shapes.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, in order
+    python3 chip_smoke.py 9 19       # these phases, and the products they read
+
+A phase is named by its label below ("12-13" runs TaxiBJ and SST as one).
+The phases share one working directory and the products a later phase reads
+(``PRODUCTS``: which phase makes each and which read it), each built by one
+function at its first use and then kept.  A phase asked for alone builds what
+it reads, and runs with it the checks of the phase that builds it: ``9``
+runs 8b's.
 
 The rollout has two kernels, chosen per call by ``rollout_plan`` from the
 shapes: the cluster kernel (weights resident in a thread-block cluster's
@@ -58,12 +66,12 @@ result line is printed):
       same requests through the streaming kernel (3 launches of it, none of
       the cluster one); shapes, range, and its T codes against the plain
       rollout;
-5. timing: the Forecaster's latency and per-layer profile; both kernels at
-   the serving shapes, in turns (stream, cluster, cluster, stream); the
-   cluster kernel at 4 rows a cluster; the plain loop, the eager
-   ``torch.addmm`` loop and the bound; the streaming kernel at the 4-block
-   serving shape and at phase 3's 8 blocks of code 64 (W1, biases and W3
-   from L2), each beside its plain and ``addmm`` loops and its bound;
+5. kernel timing, through ``rollout_turns``, the one procedure that times
+   the rollout kernels (each plan held against the plain version, then
+   timed in turns with the plain loop and the eager ``torch.addmm`` loop,
+   beside the bound): both kernels and the cluster kernel at 4 rows a
+   cluster at the serving shapes; the streaming kernel at the 4-block
+   serving shape and at 8 blocks of code 64 (W1, biases and W3 from L2);
 6. the train step, card against CPU: full width, f32 with TF32 off, B 8,
    5+10 frames, offset 5, ``fused_loss``; the same weights, batch and
    ``t_random`` through ``make_train_step`` on the card and on the CPU.
@@ -77,22 +85,18 @@ result line is printed):
    that falls, params and BatchNorm statistics that move, and no rollout
    launch; then the trained weights, served under ``mixed`` (bf16 convs,
    the f32 rollout), answer one request through the cluster kernel (1 launch).
-   Timing: 3 warm-up and 20 timed steps, bf16 and f32 with TF32 off,
-   ms/step and samples/s; one step split by CUDA events into forward,
-   backward and optimizer; a torch.profiler trace (top device kernels, the
-   device's idle share); the step's FLOPs counted by
-   ``torch.utils.flop_counter`` and their share of the card's bf16 peak;
+   Then the bf16 step's ms/step and samples/s (3 warm-up and 20 timed
+   steps), which no benchmark cell measures (the cells are f32);
 8. the train entry point at the flagship config, on synthetic idx digits
    (60,000, MNIST's training size) written to a temporary directory:
    a. data on the card: one flagship batch (B 128, 2 digits, 15 frames)
       drawn and rendered on the card, and rendered from the same draws on
       the CPU, bitwise equal (and equal to the host ``composite``); the same
-      for the stochastic bounce solver, positions and counts; the
-      generation time a batch by CUDA events and its device kernels;
+      for the stochastic bounce solver, positions and counts;
    b. ``cli.main.main`` in-process at ``bench.py``'s flags, 2 epochs x 20
       steps: checkpoints ``1``, ``2`` and ``final``, ``metrics.csv`` rows, a
-      finite loss that falls, no rollout launch; samples/s an epoch;
-      checkpoint save and restore times; the cost of the epoch's fence;
+      finite loss that falls, no rollout launch; samples/s an epoch; the
+      checkpoint saved and restored bitwise;
    c. resume with ``cudnn.deterministic``: 2 epochs x 6 steps uninterrupted,
       against the same run stopped by a SIGTERM that its ``log_fn`` sends
       after step 8 and resumed; params, BatchNorm statistics, Adam moments
@@ -129,11 +133,9 @@ result line is printed):
       kernel-bearing call (a score, or an archived batch's swap forecast);
    d. the t10 eval of the checkpoint killed after batch 2 and resumed, under
       ``cudnn.deterministic``: means bitwise equal to the uninterrupted run;
-   e. timing, per protocol: the host's ms a batch (items and stacking), the
-      device's ms a batch by CUDA events (forecast, metrics, SSIM alone), the
-      scoring loop's sequences/s and the device's idle share under the
-      profiler, for the bf16 checkpoint and the f32 model; both kernels at
-      the t10 eval's rollout shapes (B 16 x 15 steps).
+   e. per protocol, the scoring loop's sequences/s and the device's idle
+      share under the profiler, for the bf16 checkpoint and the f32 model;
+      both kernels at the t10 eval's rollout shapes (B 16 x 15 steps).
 10. WaveEq and WaveEq-100 (the recipes of ``tests/test_recipes.py:28-36``,
     full width), in a temporary directory:
     a. ``simulate_wave`` on the card, 2 sequences x 300 steps of 64x64, both
@@ -143,11 +145,10 @@ result line is printed):
        x 300 frames, seed 42, ~1.5 GB of npz) and ``generate_pixels``: the
        seconds, and the f0/c draws byte-equal to a host ``RandomState(42)``;
     c. ``DeviceWaveEq`` over the train split on the card: a B 128 batch of
-       the same draws gathered on the card and on the CPU, bitwise; ms a
-       batch and the corpus's MB on the card;
+       the same draws gathered on the card and on the CPU, bitwise; the
+       corpus's MB on the card;
     d. the train CLI on both recipes in bf16, 2 epochs x 20 steps: a finite
-       loss that falls, 0 rollout launches, samples/s an epoch, the fused
-       step's ms/step and a profiler trace (busy ms, idle share); a ``wave``
+       loss that falls, 0 rollout launches, samples/s an epoch; a ``wave``
        run stopped by SIGTERM after step 8 and resumed, bitwise equal to the
        uninterrupted run;
     e. ``cli.test_wave`` on both bf16 checkpoints over the whole test split
@@ -168,11 +169,10 @@ result line is printed):
        card against CPU, with phase 6's tolerances and 0 launches;
     c. ``cli.gen_synthetic chairs --n_objects 100`` (6,200 PNGs); the train
        split on the card (``DeviceChairs``, uint8) and a B 128 batch of the
-       same draws against the host ``Chairs`` items, bitwise; ms a batch;
+       same draws against the host ``Chairs`` items, bitwise;
     d. the train CLI, bf16 B 128, 2 epochs x 20 steps: the loss falls, 0
-       launches, samples/s, the fused step's ms and a profiler trace; a run
-       stopped by SIGTERM and resumed, bitwise under ``cudnn.deterministic``;
-       the host data path;
+       launches, samples/s; a run stopped by SIGTERM and resumed, bitwise
+       under ``cudnn.deterministic``; the host data path;
     e. ``cli.test_chairs_disentanglement --nt_pred 10`` on the bf16
        checkpoint over the whole test split (930 sequences), 0 launches,
        and its resume, bitwise;
@@ -193,11 +193,11 @@ result line is printed):
        card against CPU, with phase 6's tolerances and 0 launches;
     b. the stand-in's and the split's seconds; ``DeviceItems`` over the
        train split (1.42 GB) and a B 100 batch of the same draws against the
-       host items, bitwise; ms a batch;
+       host items, bitwise;
     c. ``run_training(device_gen=...)`` at the recipe, bf16, 2 epochs x 10
-       steps: the loss falls, 0 launches, samples/s, the fused step's ms and
-       a profiler trace; a run stopped by SIGTERM after step 8 and resumed,
-       bitwise under ``cudnn.deterministic``;
+       steps: the loss falls, 0 launches, samples/s and a profiler trace of
+       one fused step (busy ms, idle share); a run stopped by SIGTERM after
+       step 8 and resumed, bitwise under ``cudnn.deterministic``;
     d. ``eval.taxibj.evaluate`` on the bf16 checkpoint over the whole test
        split (1,344 sequences, 11 batches of 128), the ``evals.json`` record
        the CLI writes, 0 launches;
@@ -215,7 +215,7 @@ result line is printed):
        model, card against CPU, as 12a; one f32 train step at B 8; one bf16
        forward at ``--zone_size 256``;
     b. as 12b with ``DeviceZoneWindows`` (0.76 GB) and a B 128 batch;
-    c. as 12c;
+    c. as 12c, without the profiler trace;
     d. ``eval.sst.evaluate`` on the bf16 checkpoint over zones 17-20 (1,220
        sequences, B 64): finite MSEs, SSIM in (0, 1], the ``evals.json``
        record, 0 launches;
@@ -236,7 +236,7 @@ result line is printed):
        x 3 steps, a checkpoint an epoch) against the same run without it,
        under ``cudnn.deterministic``: params, BatchNorm statistics and Adam
        state bitwise equal, one ``stability.csv`` row and one cluster launch
-       a checkpoint; the time of one probe;
+       a checkpoint;
     b. the ``diagnose`` CLI (``--epoch all``, B 32 x 20 steps) on 14c's
        f32 flagship checkpoints (one cluster launch each) and on 14a's f32
        WaveEq checkpoints (one streaming launch each), every report held
@@ -269,9 +269,10 @@ result line is printed):
        BatchNorm statistics at the CPU test's tolerances in both, the
        rank-averaged gradients at its 1e-4 in f64 and, in f32, each side
        within phase 6's tolerance of the f64 step (see PAR_GRAD_TOL); the
-       statistics, gradients and logged loss equal on both ranks; then the
-       bf16 flagship's ms/step and samples/s beside phase 7's, and each
-       rank's seconds from the spawn to the end of each stage.  15a-c launch
+       statistics, gradients and logged loss equal on both ranks; then
+       ``PAR_BF16_STEPS`` bf16 flagship steps on each rank with a finite
+       loss, and each rank's seconds from the spawn to the end of each
+       stage.  15a-c launch
        the rollout kernel 0 times (counted over all of their steps);
     c. in the world-1 NCCL group, tensor parallel at (data 1, model 1): gloo
        cannot carry DTensor's collectives of CUDA tensors (see
@@ -281,24 +282,24 @@ result line is printed):
     d. ``Evaluator`` over the mesh (cuda:0, cuda:0) on phase 3's f32 seed-0
        model and phase 9's test set, at B 16 and a ragged B 13: one cluster
        launch a shard a batch, the forecasts held against one device at the
-       forecast tolerances, and sequences/s of each;
+       forecast tolerances;
     e. ``Forecaster`` over the same mesh at B 64 x 100: two launches a
        request (each shard's plan printed), the answers held against one
-       device, p50/p99 of each;
+       device;
     f. ``cli.test_wave --devices 2`` on one card raises JAX's ``requested 2
        devices, have 1``; ``--devices 1`` runs (the wave recipe's f32 seed-0
        checkpoint on a small ``gen_wave`` corpus, through the streaming
        kernel).
 16. the port's measurement programs, each through its ``main`` in this
-    process, its JSON line parsed:
-    a. ``bench`` at its own depth: ``value``, ``mfu``, ``hbm_gb_per_step``
-       and the other figures finite and positive;
-    b. ``tools.trace_flagship`` (2 + 10 steps, 3 traced): the traffic count,
+    process at the least depth its flags take, its JSON line parsed:
+    a. ``bench`` (1 + 5 steps, its five blocks): ``value``, ``mfu``,
+       ``hbm_gb_per_step`` and the other figures finite and positive;
+    b. ``tools.trace_flagship`` (1 + 1 steps, 3 traced): the traffic count,
        the utilization and the trace's busy ms positive, its trace written;
-    c. ``tools.bench_horizon_remat``'s two t95 B 32 rows (2 + 5 steps) under
+    c. ``tools.bench_horizon_remat``'s two t95 B 32 rows (1 + 1 steps) under
        ``cudnn.deterministic``: both measured, their losses equal (at
        phase 6's loss tolerance);
-    d. ``tools.bench_serving_rollout`` (10 end-to-end calls a precision):
+    d. ``tools.bench_serving_rollout`` (1 end-to-end call a precision):
        both kernels within the rollout tolerance of the plain rollout, no
        launch in bf16.
     The rollout kernel launches 0 times in a-c.
@@ -317,9 +318,9 @@ result line is printed):
        reference's factory) and the export imported again: both bitwise;
     e. ``enable_compilation_cache`` resolves the root phase 2 built into,
        and every loaded kernel came from there (no build in this phase).
-18. TaxiBJ and SST from their HDF5 files, run right after phase 13 in its
-    working directory, on phases 12-13's experiments; the files are written
-    and read by the port's own HDF5 module (``data/hdf5.py``), never h5py:
+18. TaxiBJ and SST from their HDF5 files, on phases 12-13's experiments
+    and splits; the files are written and read by the port's own HDF5
+    module (``data/hdf5.py``), never h5py:
     a. ``gen_synthetic taxibj`` (4 years x 120 days, 12's stand-in) and
        ``gen_synthetic sst`` (29 zones x 1,600 days at 64x64, 13's) through
        their CLI: MB and seconds; h5py not imported; one file of each read
@@ -355,8 +356,8 @@ result line is printed):
     ``rows_computed`` the rows asked for, 5 launches and 1 rollout launch each, and
     the seconds they take; and the serving cell's ``frame_gap`` on 12 seeds through
     ``benchmark/calibrate.py``, at most a fifth of its limit.
-Each phase, and each part of phases 14, 15 and 16, prints its seconds on a line
-of its own; a line before the JSON lines lists every phase's seconds.
+Each phase, and each part of phases 12-13, 14, 15 and 16, prints its seconds on
+a line of its own; a line before the JSON lines lists every phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel (its
 serving-path launches, its launches on each eval path in ``launches_eval``,
@@ -369,7 +370,8 @@ B 128 x 8, its launches on phase 14's paths in ``launches_ops``, on
 phase 15's paths in ``launches_parallel``, in phase 16's programs in
 ``launches_bench``, on phase 17's in ``launches_import`` and on phase 18's
 in ``launches_hdf5``), and one for the decoder kernel (phase 19's launches, gaps and
-times at both shapes); the last is ``{"ok": true, "device": {...}}``.
+times at both shapes); it is printed when every phase ran.  The last line is
+``{"ok": true, "device": {...}, "checks": N}``, N the checks that ran and passed.
 """
 
 from __future__ import annotations
@@ -405,7 +407,6 @@ from spatiotemporal_variable_separation_tpu_torch.bench import (
     cuda_ms,
     device_profile,
     nvidia_smi,
-    step_flops,
 )
 from spatiotemporal_variable_separation_tpu_torch.checkpoint import load_for_eval
 from spatiotemporal_variable_separation_tpu_torch.core.activations import activation
@@ -461,15 +462,8 @@ from spatiotemporal_variable_separation_tpu_torch.eval import mnist_swap as eval
 from spatiotemporal_variable_separation_tpu_torch.eval import sst as eval_sst
 from spatiotemporal_variable_separation_tpu_torch.eval import taxibj as eval_taxibj
 from spatiotemporal_variable_separation_tpu_torch.eval import wave as eval_wave
-from spatiotemporal_variable_separation_tpu_torch.eval.common import (
-    Evaluator,
-    per_sequence_metrics,
-)
-from spatiotemporal_variable_separation_tpu_torch.eval.diagnostics import (
-    diagnose,
-    finalize_probe,
-    make_rollout_probe,
-)
+from spatiotemporal_variable_separation_tpu_torch.eval.common import Evaluator
+from spatiotemporal_variable_separation_tpu_torch.eval.diagnostics import diagnose
 from spatiotemporal_variable_separation_tpu_torch.eval.mnist_swap import SwapDataset
 from spatiotemporal_variable_separation_tpu_torch.models.factory import build_separable_network
 from spatiotemporal_variable_separation_tpu_torch.models.integrator import MLPResnet
@@ -501,7 +495,6 @@ from spatiotemporal_variable_separation_tpu_torch.tools.bench_serving_rollout im
 from spatiotemporal_variable_separation_tpu_torch.train import (
     TrainState,
     create_train_state,
-    datagen_batch,
     make_fused_datagen_step,
     make_optimizer,
     make_train_step,
@@ -572,7 +565,6 @@ LOSS_FALL = 0.1
 # -- phase 8: the train entry point ---------------------------------------
 N_DIGITS = 60_000  # synthetic stand-ins for MNIST's 60,000 training digits
 CLI_EPOCHS, CLI_STEPS = 2, 20
-TURN_STEPS = 10  # fused datagen against a fixed batch, steps a turn
 RESUME_EPOCHS, RESUME_STEPS, RESUME_STOP_AFTER = 2, 6, 8
 HOST_STEPS = 4
 # The CLI's loss at its last logged step (40) against its first (step 5),
@@ -608,9 +600,15 @@ SSIM_MAP_TOL, SSIM_FRAME_TOL = 5e-3, 5e-5
 EVAL_MSE_RTOL, EVAL_PSNR_ATOL, EVAL_SSIM_ATOL = 1e-4, 1e-3, 1e-4
 
 
+#: The checks that ran and passed in this process (the last line's ``checks``).
+checks_passed = 0
+
+
 def check(ok: bool, what: str) -> None:
+    global checks_passed
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+    checks_passed += 1
 
 
 def check_frames(out: np.ndarray, ref: np.ndarray, what: str) -> None:
@@ -659,47 +657,6 @@ def addmm_loop(t0, params, n_steps, out, h1, h2, res):
     return out
 
 
-def profile_layers(model, cond: torch.Tensor, n_forecast: int) -> None:
-    """One forecast with its layers called one by one: device time per layer
-    from CUDA events at the layer boundaries; then a torch.profiler trace of
-    another such forecast for the busiest kernels and the device's busy share
-    of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def forecast_by_layer():
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        start = time.perf_counter()
-        marks[0].record()
-        s_code = model.encode_s(cond)
-        marks[1].record()
-        t_code = model.encode_t(cond)
-        marks[2].record()
-        t_codes, _ = model._integrate(t_code, n_forecast)
-        marks[3].record()
-        model._decode_all(s_code, None, t_codes)
-        marks[4].record()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-        return wall_ms, [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
-
-    with torch.inference_mode():
-        forecast_by_layer()  # warm-up
-        wall_ms, layer_ms = forecast_by_layer()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            traced_wall_ms, _ = forecast_by_layer()
-    print(f"  one forecast, layer by layer: wall {wall_ms:.3f} ms")
-    for name, ms in zip(("encode_s", "encode_t", "rollout", "decode"), layer_ms):
-        print(f"    {name:9s} {ms:9.3f} ms ({ms / wall_ms:.1%} of the wall)")
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"  traced forecast: wall {traced_wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({busy_ms / traced_wall_ms:.1%}), idle {1 - busy_ms / traced_wall_ms:.1%}")
-    for e in kernels[:8]:
-        print(f"    kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
-
-
 def rollout_cost(batch, code, hidden, n_blocks, n_steps):
     """(operations, bytes) of one rollout: matmul multiply-adds, bias adds,
     relus and residual adds; each input read once, the output written once."""
@@ -708,6 +665,65 @@ def rollout_cost(batch, code, hidden, n_blocks, n_steps):
     weights = n_blocks * (2 * code * hidden + hidden * hidden + 2 * hidden + code)
     nbytes = 4 * (batch * code + weights + n_steps * batch * code)
     return ops, nbytes
+
+
+def in_turns(fns: dict, reps: int, inner: int) -> tuple:
+    """Each of ``fns`` ({name: call}) timed by ``cuda_ms`` in turns, in their
+    order and then in reverse.  Returns ({name: mean ms}, {name: [ms, ms]})."""
+    runs = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        runs[k].append(cuda_ms(fns[k], reps=reps, inner=inner))
+    return {k: float(np.mean(v)) for k, v in runs.items()}, runs
+
+
+def rollout_turns(ctx, t0, params, n: int, plans: dict, reps: int = 10, inner: int = 5) -> dict:
+    """The one procedure that times the rollout kernels.  The rollout at (t0,
+    n) through each of ``plans`` ({label: plan}), one launch each, held
+    against the plain version; then timed by CUDA events in turns with the
+    plain loop and the eager ``addmm`` loop (the plans, plain, addmm, then
+    the same in reverse), beside its bound.  Returns the shapes, each plan's
+    errors, the mean ms of each and its us a block-step, and the bound."""
+    batch, code = t0.shape
+    hidden, n_blocks = params[0].shape[1], len(params) // 6
+    blocks = "1 block" if n_blocks == 1 else f"{n_blocks} blocks"
+    shapes = f"B {batch}, code {code}, H {hidden}, {blocks}, {n} steps"
+    ref = mlp_resnet_rollout_reference(t0, params, n)
+    bufs = (torch.empty(n, batch, code, device=t0.device),
+            torch.empty(batch, hidden, device=t0.device),
+            torch.empty(batch, hidden, device=t0.device),
+            torch.empty(batch, code, device=t0.device))
+    check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
+          f"addmm loop disagrees [{shapes}]")
+    fns, rel, abs_err = {}, {}, {}
+    for label, plan in plans.items():
+        reset_launch_counts()
+        out = mlp_resnet_rollout(t0, params, n, plan=plan)
+        torch.cuda.synchronize()
+        check(mlp_resnet_rollout.variant_launches[plan.variant] == 1, f"one {label} launch")
+        rel[label], abs_err[label] = step_rel_err(out, ref), float((out - ref).abs().max())
+        check(rel[label] <= ROLLOUT_REL_TOL, f"the {label} kernel disagrees with plain [{shapes}]")
+        fns[label] = lambda plan=plan: mlp_resnet_rollout(t0, params, n, plan=plan)
+    fns["plain"] = lambda: mlp_resnet_rollout_reference(t0, params, n)
+    fns["addmm"] = lambda: addmm_loop(t0, params, n, *bufs)
+    ms, runs = in_turns(fns, reps, inner)
+    ops, nbytes = rollout_cost(batch, code, hidden, n_blocks, n)
+    t_ops, t_bytes = ops / ctx.flops_peak * 1e3, nbytes / ctx.bw_peak * 1e3
+    bound = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    block_step_us = {label: ms[label] / ((n - 1) * n_blocks) * 1e3 for label in plans}
+    print(f"  rollout at {shapes}, in turns (mean of two medians of CUDA-event timings): "
+          f"plain loop {ms['plain']:.4f} ms, eager addmm loop {ms['addmm']:.4f} ms; bound "
+          f"{ops / 1e9:.4f} GFLOP at {ctx.flops_peak / 1e12:.1f} TFLOP/s f32 = {t_ops:.5f} ms, "
+          f"{nbytes / 1e6:.4f} MB at {ctx.bw_peak / 1e12:.2f} TB/s = {t_bytes:.5f} ms: "
+          f"{bound:.5f} ms by {bound_by}")
+    for label, plan in plans.items():
+        print(f"    {label}: {plan_text(plan)}: {ms[label]:.4f} ms ({runs[label][0]:.4f}, "
+              f"{runs[label][1]:.4f}), {block_step_us[label]:.2f} us a block-step, "
+              f"{bound / ms[label]:.1%} of the bound; against plain: worst step-relative "
+              f"error {rel[label]:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs "
+              f"{abs_err[label]:.3e}")
+    return {"shapes": shapes, "plans": plans, "ms": ms, "rel": rel, "abs": abs_err,
+            "block_step_us": block_step_us, "bound_ms": bound, "bound_by": bound_by}
 
 
 def moving_squares(batch: int, n_frames: int, seed: int) -> np.ndarray:
@@ -803,55 +819,11 @@ def train_step_card_vs_cpu(dev, cfg=None, seq=None, what: str = "Moving MNIST DC
     check(moved <= tol, "params after Adam, card against CPU")
 
 
-def time_train_steps(state, step, cond, target) -> float:
-    """Mean ms of one train step over TIMED_STEPS after WARMUP_STEPS, fenced
-    by torch.cuda.synchronize()."""
-    return port_bench.time_steps(lambda i: step(state, cond, target), WARMUP_STEPS,
-                                 TIMED_STEPS, cond.device)[0]
-
-
-def split_train_step(state, cfg, cond, target, reps: int = 10) -> dict:
-    """Median device ms of the forward (compute_losses), backward and
-    optimizer parts of a train step, by CUDA events between them."""
-    model, opt = state.model, state.optimizer
-    parts = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        opt.zero_grad(set_to_none=True)
-        loss, _ = model.compute_losses(cond, target, cfg.nt_cond + 2, cfg.offset, cfg.lamb_ae,
-                                       cfg.lamb_s, cfg.effective_lamb_t, cfg.lamb_pred,
-                                       cfg.average_tloss, lamb_s_norm=cfg.lamb_s_norm)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        for i, k in enumerate(parts):
-            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
-    return {k: float(np.median(v)) for k, v in parts.items()}
-
-
-def profile_train_steps(state, step, cond, target, n: int = 3) -> dict:
-    """A torch.profiler trace of ``n`` train steps: the busiest device
-    kernels and the device's busy share of the wall time.  Returns a step's
-    wall and busy ms, its idle share and its device kernels."""
-    prof = device_profile(lambda: step(state, cond, target), n)
-    wall_ms, busy_ms = prof["wall_ms"] * n, prof["busy_ms"] * n
-    print(f"  traced {n} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({busy_ms / wall_ms:.1%}), idle {prof['idle']:.1%}; "
-          f"{prof['kernels']:.0f} device kernels a step")
-    for e in prof["events"][:12]:
-        print(f"    kernel {e.self_device_time_total / 1e3 / n:9.3f} ms a step "
-              f"({e.self_device_time_total / 1e3 / busy_ms:.1%}) x{e.count // n:<5d} {e.key[:90]}")
-    return {k: prof[k] for k in ("wall_ms", "busy_ms", "idle", "kernels")}
-
-
-def flagship_train(dev, smi: str, card: str) -> float:
-    """Phase 7: the flagship config trains on a fixed batch, is timed, and
-    its weights serve one request through the cluster kernel.  Returns the
-    bf16 ms/step."""
+def flagship_train(ctx) -> None:
+    """Phase 7: the flagship config trains on a fixed batch, its weights
+    serve one request through the cluster kernel, and its bf16 step is
+    timed."""
+    dev = ctx.dev
     cfg = ExperimentConfig(**FLAGSHIP)
     state = create_train_state(cfg, steps_per_epoch=100, device=dev)
     step = make_train_step(state.model, cfg, state.optimizer)
@@ -892,37 +864,10 @@ def flagship_train(dev, smi: str, card: str) -> float:
     check(frames.shape == (B, N_FORECAST) + cfg.frame_shape and bool(np.isfinite(frames).all())
           and bool(((frames >= 0) & (frames <= 1)).all()), "trained-model forecast")
 
-    print(f"timing the train step on {smi}")
-    bf16_ms = time_train_steps(state, step, cond, target)
-    print(f"  flagship bf16 B{cfg.batch_size}: {bf16_ms:.3f} ms/step, "
-          f"{cfg.batch_size / bf16_ms * 1e3:.1f} samples/s ({WARMUP_STEPS} warm-up, mean of "
-          f"{TIMED_STEPS} steps)")
-    parts = split_train_step(state, cfg, cond, target)
-    total = sum(parts.values())
-    print("  one step by CUDA events (median of 10): " + ", ".join(
-        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()))
-    profile_train_steps(state, step, cond, target)
-    flops = step_flops(state.model, cfg, cond, target)
-    peak = card_peaks(card)[2]
-    print(f"  FLOPs of one step (forward and backward, torch.utils.flop_counter): "
-          f"{flops / 1e12:.4f} TFLOP = {flops / cfg.batch_size / 3 / 1e9:.3f} GFLOP forward a "
-          f"sample if backward is twice forward; {flops / bf16_ms / 1e9:.1f} TFLOP/s, "
-          f"{flops / bf16_ms / 1e9 / (peak / 1e12):.1%} of the {peak / 1e12:.0f} TFLOP/s "
-          f"dense bf16 peak (NVIDIA H100 data sheet)")
-    del state, step
-    f32_cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
-    f32_state = create_train_state(f32_cfg, steps_per_epoch=100, device=dev)
-    f32_step = make_train_step(f32_state.model, f32_cfg, f32_state.optimizer)
-    f32_ms = time_train_steps(f32_state, f32_step, cond, target)
-    print(f"  the same step in f32, TF32 off: {f32_ms:.3f} ms/step, "
-          f"{cfg.batch_size / f32_ms * 1e3:.1f} samples/s; bf16 is {f32_ms / bf16_ms:.2f}x as fast")
-    parts = split_train_step(f32_state, f32_cfg, cond, target)
-    total = sum(parts.values())
-    print("  f32 step by CUDA events (median of 10): " + ", ".join(
-        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()))
-    profile_train_steps(f32_state, f32_step, cond, target)
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return bf16_ms
+    ms = port_bench.time_steps(lambda i: step(state, cond, target), WARMUP_STEPS, TIMED_STEPS,
+                               dev)[0]
+    print(f"  the bf16 step on {ctx.smi}: {ms:.3f} ms/step, {cfg.batch_size / ms * 1e3:.1f} "
+          f"samples/s ({WARMUP_STEPS} warm-up, mean of {TIMED_STEPS} steps, host clock, fenced)")
 
 
 def write_idx_images(path: str, images: np.ndarray) -> None:
@@ -958,22 +903,6 @@ def flagship_argv(xp_dir: str, data_dir: str, epochs: int, steps: int, *extra) -
 def metrics_rows(xp_dir: str) -> list:
     with open(os.path.join(xp_dir, "metrics.csv")) as f:
         return list(csv.DictReader(f))
-
-
-def device_kernels(fn, n: int = 5) -> tuple:
-    """(device kernels, their summed device ms) a call of ``fn``, from a
-    torch.profiler trace of n calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return (sum(e.count for e in kernels) / n,
-            sum(e.self_device_time_total for e in kernels) / 1e3 / n)
 
 
 def train_state_tensors(state) -> dict:
@@ -1021,21 +950,15 @@ def data_on_card(dev, digits: np.ndarray) -> DeviceMovingMNIST:
           f"{int(s_card[1].max())} in a step; positions and counts card == CPU bitwise: {same}; "
           f"frames: {frames_same}")
     check(same and frames_same, "stochastic positions differ between the card and the CPU")
-
-    rng = torch.Generator(device=dev)
-    ms = cuda_ms(lambda: datagen_batch(gen, cfg, 0, rng), reps=10, inner=5)
-    kernels, busy_ms = device_kernels(lambda: datagen_batch(gen, cfg, 0, rng))
-    s_ms = cuda_ms(lambda: sgen.generate_device_batch(rng, batch), reps=3, inner=2)
-    print(f"  generation, one B {batch} batch (datagen_batch: reseed, draw, fold, render): "
-          f"{ms:.4f} ms between CUDA events, {kernels:.0f} device kernels busy {busy_ms:.4f} ms "
-          f"(profiler); stochastic dynamics: {s_ms:.3f} ms between CUDA events")
     return gen
 
 
-def train_cli(dev, data_dir: str, work: str, bf16_ms: float):
-    """Phase 8b: the train CLI at the flagship config; returns its state and
-    xp_dir."""
-    xp = os.path.join(work, "cli")
+def train_cli(ctx) -> types.SimpleNamespace:
+    """Phase 8b, the product ``ctx.checkpoint``: the train CLI at the
+    flagship config on phase 8's digits, its checkpoint saved and restored
+    bitwise.  Returns its ``xp`` and trained ``state``."""
+    data_dir = ctx.digits.data_dir
+    xp = os.path.join(ctx.work, "cli")
     argv = flagship_argv(xp, data_dir, CLI_EPOCHS, CLI_STEPS, "--chkpt_interval", "1",
                          "--log_every", "5")
     print("train CLI: python -m spatiotemporal_variable_separation_tpu_torch.cli.main "
@@ -1061,77 +984,18 @@ def train_cli(dev, data_dir: str, work: str, bf16_ms: float):
     batch = FLAGSHIP["batch_size"]
     for e, sps in enumerate(epochs):
         print(f"  epoch {e}: {sps:.1f} samples/s = {batch / sps * 1e3:.3f} ms/step"
-              + (" (includes the first step's warm-up)" if e == 0 else "")
-              + f"; phase 7's fixed batch: {batch / bf16_ms * 1e3:.1f} samples/s")
+              + (" (includes the first step's warm-up)" if e == 0 else ""))
     check(len(epochs) == CLI_EPOCHS, "one samples/s row an epoch")
 
-    datagen_turns(dev, data_dir)
-
-    # checkpoint save and restore of this state, and the epoch fence's cost
-    t = time.perf_counter()
-    checkpoint.save_checkpoint(xp, state, name="timing")
-    save_ms = (time.perf_counter() - t) * 1e3
-    size = os.path.getsize(os.path.join(xp, "checkpoints", "timing", "train_state.pt"))
+    checkpoint.save_checkpoint(xp, state, name="round_trip")
     cfg = ExperimentConfig.from_json_file(os.path.join(xp, "params.json"))
-    fresh = create_train_state(cfg, CLI_STEPS, device=dev)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    checkpoint.restore_checkpoint(xp, fresh, name="timing")
-    torch.cuda.synchronize()
-    restore_ms = (time.perf_counter() - t) * 1e3
+    fresh = create_train_state(cfg, CLI_STEPS, device=ctx.dev)
+    checkpoint.restore_checkpoint(xp, fresh, name="round_trip")
     same = all(torch.equal(a, b) for a, b in zip(train_state_tensors(state).values(),
                                                  train_state_tensors(fresh).values()))
-    print(f"  checkpoint: {size / 1e6:.1f} MB, save {save_ms:.1f} ms, restore {restore_ms:.1f} ms "
-          f"(host clock, fenced); restored state bitwise equal: {same}")
+    print(f"  checkpoint saved and restored: state bitwise equal: {same}")
     check(same, "checkpoint round trip on the card")
-    gen = DeviceMovingMNIST.from_data_dir(data_dir, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred,
-                                          cfg.n_object, device=dev)
-    step = make_fused_datagen_step(fresh.model, cfg, fresh.optimizer, gen)
-    for _ in range(3):
-        step(fresh)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(CLI_STEPS):
-        metrics = step(fresh)
-    enqueue_ms = (time.perf_counter() - t) * 1e3
-    t = time.perf_counter()
-    float(metrics["loss"])
-    fence_ms = (time.perf_counter() - t) * 1e3
-    print(f"  the epoch's fence: {CLI_STEPS} fused steps enqueued in {enqueue_ms:.1f} ms, then "
-          f"float(loss) waited {fence_ms:.1f} ms")
-    return state, xp
-
-
-def datagen_turns(dev, data_dir: str) -> None:
-    """The fused datagen step against the same step on one fixed batch made
-    by it, TURN_STEPS steps at a time in turns (fixed, fused, fused, fixed),
-    each between two synchronisations."""
-    cfg = ExperimentConfig(**FLAGSHIP)
-    gen = DeviceMovingMNIST.from_data_dir(data_dir, cfg.nt_cond, cfg.nt_cond + cfg.nt_pred,
-                                          cfg.n_object, device=dev)
-    fixed_state = create_train_state(cfg, CLI_STEPS, device=dev)
-    fused_state = create_train_state(cfg, CLI_STEPS, device=dev)
-    fixed = make_train_step(fixed_state.model, cfg, fixed_state.optimizer)
-    fused = make_fused_datagen_step(fused_state.model, cfg, fused_state.optimizer, gen)
-    batch = datagen_batch(gen, cfg, 0)
-    runs = {"fixed": lambda: fixed(fixed_state, *batch), "fused": lambda: fused(fused_state)}
-    for fn in runs.values():
-        for _ in range(WARMUP_STEPS):
-            fn()
-    times = {k: [] for k in runs}
-    for k in ("fixed", "fused", "fused", "fixed"):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(TURN_STEPS):
-            runs[k]()
-        torch.cuda.synchronize()
-        times[k].append((time.perf_counter() - t) / TURN_STEPS * 1e3)
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
-    print(f"  in turns, {TURN_STEPS} steps each: fixed batch {ms['fixed']:.3f} ms/step "
-          f"({times['fixed'][0]:.3f}, {times['fixed'][1]:.3f}), fused datagen "
-          f"{ms['fused']:.3f} ms/step ({times['fused'][0]:.3f}, {times['fused'][1]:.3f}); "
-          f"{cfg.batch_size / ms['fixed'] * 1e3:.1f} and {cfg.batch_size / ms['fused'] * 1e3:.1f} "
-          f"samples/s; fused / fixed {ms['fused'] / ms['fixed']:.3f}")
+    return types.SimpleNamespace(xp=xp, state=state)
 
 
 def resume_on_card(dev, data_dir: str, work: str) -> None:
@@ -1240,24 +1104,30 @@ def serve_checkpoint(dev, xp: str, trained_model, gen: DeviceMovingMNIST) -> dic
     return launches
 
 
-def train_entry_point(dev, bf16_ms: float, work: str) -> tuple:
-    """Phase 8: the train entry point at full width, on the card, in the
-    working directory ``work``.  Returns the rollout launches of the
-    ``from_xp_dir`` request, the CLI's experiment directory and the data
-    directory."""
-    data_dir = os.path.join(work, "data")
+def write_digits(ctx) -> types.SimpleNamespace:
+    """Phase 8's product ``ctx.digits``: synthetic stand-ins for MNIST's
+    training digits, in memory (``images``) and written as its idx file to
+    a data directory (``data_dir``)."""
+    data_dir = os.path.join(ctx.work, "mnist_data")
     os.makedirs(data_dir)
     t = time.perf_counter()
-    digits = synthetic_digits(N_DIGITS)
-    write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"), digits)
+    images = synthetic_digits(N_DIGITS)
+    write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"), images)
     print(f"phase 8: {N_DIGITS} synthetic digits written as idx in "
           f"{time.perf_counter() - t:.1f} s")
-    gen = data_on_card(dev, digits)
-    state, xp = train_cli(dev, data_dir, work, bf16_ms)
-    device_sps = float(metrics_rows(xp)[-1]["samples_per_sec"])
-    resume_on_card(dev, data_dir, work)
-    host_path(dev, data_dir, work, device_sps)
-    return serve_checkpoint(dev, xp, state.model, gen), xp, data_dir
+    return types.SimpleNamespace(data_dir=data_dir, images=images)
+
+
+def train_entry_point(ctx) -> None:
+    """Phase 8: the train entry point at full width, on the card, on the
+    digits of ``ctx.digits``; 8b is ``ctx.checkpoint``."""
+    dev, data_dir = ctx.dev, ctx.digits.data_dir
+    gen = data_on_card(dev, ctx.digits.images)
+    ckpt = ctx.checkpoint
+    resume_on_card(dev, data_dir, ctx.work)
+    host_path(dev, data_dir, ctx.work, float(metrics_rows(ckpt.xp)[-1]["samples_per_sec"]))
+    served = serve_checkpoint(dev, ckpt.xp, ckpt.state.model, gen)
+    print(f"rollout kernel launches on the from_xp_dir request: {served}")
 
 
 # -- phase 9: evaluation -----------------------------------------------------
@@ -1421,10 +1291,29 @@ def evaluator_card_vs_cpu(dev, model, test_set) -> dict:
             "abs": float((out - ref).abs().max()), "t0": t0, "params": params}
 
 
-def eval_clis(xp: str, data_dir: str) -> dict:
-    """Phase 9c, the bf16 checkpoint: both protocols through their CLIs,
-    in-process, on the card.  Returns {protocol: (sequences, wall s)}."""
-    runs = {}
+def write_test_set(ctx) -> str:
+    """Phase 9's product ``ctx.test_set``: synthetic test digits written as
+    idx files beside phase 8's training digits, and the test set
+    ``make_test_set`` makes of them.  Returns the data directory."""
+    data_dir = ctx.digits.data_dir
+    t = time.perf_counter()
+    digits = synthetic_digits(N_TEST_DIGITS, seed=1)
+    write_idx_images(os.path.join(data_dir, "t10k-images-idx3-ubyte"), digits)
+    write_idx_labels(os.path.join(data_dir, "t10k-labels-idx1-ubyte"),
+                     (np.arange(N_TEST_DIGITS) % 10).astype(np.uint8))
+    path = make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
+    print(f"phase 9: {N_TEST_DIGITS} synthetic test digits and the test set "
+          f"({N_TEST_DIGITS // 2} sequences x {TEST_SEQ_LEN} frames, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB compressed) in {time.perf_counter() - t:.1f} s")
+    return data_dir
+
+
+def eval_clis(ctx) -> str:
+    """Phase 9c, the product ``ctx.eval_archive``: both protocols through
+    their CLIs, in-process, on the card, on phase 8b's bf16 checkpoint and
+    ``ctx.test_set``.  The t95 run leaves its archive in the checkpoint's
+    directory, which is returned."""
+    xp, data_dir = ctx.checkpoint.xp, ctx.test_set
     with open(os.path.join(xp, "params.json")) as f:
         precision = json.load(f)["precision"]
     for key, cli, flags in (
@@ -1444,7 +1333,6 @@ def eval_clis(xp: str, data_dir: str) -> dict:
         launches = dict(mlp_resnet_rollout.variant_launches)
         record = json.load(open(os.path.join(xp, "evals.json")))[key]
         n_seq = EVAL_B * T95_MAX_BATCHES if key == "mnist_t95" else N_TEST_DIGITS // 2
-        runs[key] = (n_seq, wall)
         print(f"  {n_seq} sequences in {wall:.1f} s ({n_seq / wall:.1f} sequences/s, load "
               f"included); means {means}; rollout launches {launches}; evals.json "
               f"max_batches {record.get('max_batches')}")
@@ -1454,7 +1342,7 @@ def eval_clis(xp: str, data_dir: str) -> dict:
               f"{key}: the {precision} path launched the rollout kernel")
         check(record["mse"] == means["mse"] and record.get("max_batches") == (
             T95_MAX_BATCHES if key == "mnist_t95" else None), f"{key}: evals.json record")
-    return runs
+    return xp
 
 
 def t95_ssim_by_step(dev, xp: str) -> None:
@@ -1554,29 +1442,10 @@ def eval_resume(xp: str, data_dir: str, evaluate, protocol: str, results: str,
     check(resumed == full and rows_equal, "the resumed eval differs from the uninterrupted one")
 
 
-def profile_busy(fn, n: int) -> tuple:
-    """(wall ms, device busy ms) a call of ``fn``, from a torch.profiler
-    trace of ``n`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / n
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / n
-    return wall_ms, busy
-
-
-def eval_timing(dev, smi: str, models: dict, data_dir: str, runs: dict) -> None:
-    """Phase 9e: per protocol, the host's ms a batch (items and stacking),
-    the device's ms a batch by CUDA events (forecast, metrics, SSIM alone),
-    the loop's sequences/s and the device's idle share under the profiler."""
-    print(f"eval timing on {smi}, B {EVAL_B} (TF32 off)")
+def eval_idle(models: dict, data_dir: str) -> None:
+    """Phase 9e: per protocol and model, the scoring loop (host batch and
+    score) under the profiler: its sequences/s and the device's idle share,
+    at the eval batch."""
     images, _ = load_mnist(data_dir, train=False)
     sets = {nt: MovingMNIST.make_dataset(data_dir, 64, 5, 5 + nt, 4, True, 2, train=False)
             for nt in (10, 95)}
@@ -1594,27 +1463,8 @@ def eval_timing(dev, smi: str, models: dict, data_dir: str, runs: dict) -> None:
             return (np.stack([it[0] for it in sw]), cond,
                     np.stack([it[3] for it in sw]))
 
-        t = time.perf_counter()
-        batches = [host_batch(b) for b in range(EVAL_TIMING_BATCHES)]
-        host_ms = (time.perf_counter() - t) / EVAL_TIMING_BATCHES * 1e3
         for name, model in models.items():
             ev = Evaluator(model)
-            x = [torch.from_numpy(a).to(dev) for a in batches[0]]
-            with torch.inference_mode():
-                s = ev.model.encode_s(x[0]) if swap else None
-                window = x[1] if swap else x[0]
-
-                def forecast(window=window, s=s, ev=ev):
-                    return ev.model.get_forecast(window, 5 + nt, init_s_code=s)[0]
-
-                pred, gt = forecast()[:, 5:], x[-1]
-                if swap:  # every permutation against the one prediction
-                    n_perms = gt.shape[1]
-                    pred = pred.unsqueeze(1).expand(-1, n_perms, -1, -1, -1, -1).flatten(0, 1)
-                    gt = gt.flatten(0, 1)
-                fc_ms = cuda_ms(forecast, reps=5, inner=2)
-                met_ms = cuda_ms(lambda: per_sequence_metrics(pred, gt), reps=5, inner=2)
-                ssim_ms = cuda_ms(lambda: ssim_per_frame(pred, gt), reps=5, inner=2)
             batch_ids = itertools.cycle(range(EVAL_TIMING_BATCHES))
 
             def loop(ev=ev, swap=swap):
@@ -1622,98 +1472,40 @@ def eval_timing(dev, smi: str, models: dict, data_dir: str, runs: dict) -> None:
                 return ev.score_swap(*b, nt_skip=5) if swap else ev.score(*b, nt_skip=5)
 
             loop()
-            wall_ms, busy_ms = profile_busy(loop, EVAL_TIMING_BATCHES)
-            print(f"  {key} [{name}]: host {host_ms:.2f} ms a batch (items and stacking); "
-                  f"device {fc_ms:.3f} ms forecast, {met_ms:.3f} ms metrics of which SSIM "
-                  f"{ssim_ms:.3f} ms (CUDA events); the loop (host batch + score) "
-                  f"{wall_ms:.2f} ms a batch = {EVAL_B / wall_ms * 1e3:.1f} sequences/s, "
-                  f"device busy {busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%} (profiler)")
-        if key in runs:
-            n_seq, wall = runs[key]
-            print(f"  {key}: the CLI scored {n_seq} sequences at {n_seq / wall:.1f} "
-                  f"sequences/s, test-set load included (phase 9c)")
+            prof = device_profile(loop, EVAL_TIMING_BATCHES)
+            print(f"  {key} [{name}], B {EVAL_B}, the loop (host batch + score): "
+                  f"{prof['wall_ms']:.2f} ms a batch = {EVAL_B / prof['wall_ms'] * 1e3:.1f} "
+                  f"sequences/s, device busy {prof['busy_ms']:.3f} ms, idle {prof['idle']:.1%} "
+                  f"(profiler)")
 
 
-def evaluation(dev, smi: str, model, cfg, xp: str, data_dir: str, work: str) -> dict:
-    """Phase 9: the Moving MNIST evaluation on the card.  ``model``/``cfg``:
-    the full-width seed-0 f32 model; ``xp``: the bf16 checkpoint of phase
-    8b; ``data_dir`` gains MNIST-sized synthetic test digits and the test
-    set.  Returns the eval launches of the kernel and its B 16 figures."""
-    t = time.perf_counter()
-    digits = synthetic_digits(N_TEST_DIGITS, seed=1)
-    write_idx_images(os.path.join(data_dir, "t10k-images-idx3-ubyte"), digits)
-    write_idx_labels(os.path.join(data_dir, "t10k-labels-idx1-ubyte"),
-                     (np.arange(N_TEST_DIGITS) % 10).astype(np.uint8))
-    path = make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
-    print(f"phase 9: {N_TEST_DIGITS} synthetic test digits and the test set "
-          f"({N_TEST_DIGITS // 2} sequences x {TEST_SEQ_LEN} frames, "
-          f"{os.path.getsize(path) / 1e6:.1f} MB compressed) in {time.perf_counter() - t:.1f} s")
+def evaluation(ctx) -> dict:
+    """Phase 9: the Moving MNIST evaluation on the card, of phase 3's seed-0
+    f32 model and phase 8b's bf16 checkpoint, on ``ctx.test_set``.  Returns
+    the eval launches of the kernel, its B 16 figures and its times at the
+    t10 eval's rollout shapes."""
+    dev, model, cfg = ctx.dev, ctx.seed0.model, ctx.seed0.cfg
+    data_dir = ctx.test_set
     test_set = MovingMNIST.make_dataset(data_dir, 64, cfg.nt_cond, cfg.nt_cond + 10, 4, True,
                                         cfg.n_object, train=False)
     check(len(test_set) == N_TEST_DIGITS // 2, "test-set size")
     ssim = ssim_on_card(dev, test_set)
     b16 = evaluator_card_vs_cpu(dev, model, test_set)
     del test_set
-    runs = eval_clis(xp, data_dir)
+    xp = ctx.eval_archive
     t95_ssim_by_step(dev, xp)
-    bundle = eval_f32_bundle(model, cfg, data_dir, work)
+    bundle = eval_f32_bundle(model, cfg, data_dir, ctx.work)
     eval_resume(xp, data_dir, eval_mnist.evaluate, "mnist_t10", "results.npz", nt_pred=10,
                 max_batches=RESUME_BATCHES, save_arrays=False, device=dev)
+    print(f"eval timing on {ctx.smi} (TF32 off)")
     bf16_model, _ = load_for_eval(xp, device=dev)
-    eval_timing(dev, smi, {"bf16 checkpoint": bf16_model, "f32 seed 0": model}, data_dir, runs)
-    return {"b16": b16, "bundle": bundle, "ssim": ssim}
-
-
-def phase9_only(dev=None) -> None:
-    """Phase 9 alone, a quicker run on the card than the whole script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase9_only()"
-
-    It trains the flagship through the train CLI for 1 epoch of 5 steps (a
-    bf16 checkpoint, in place of phase 8b's 40 steps), then runs phase 9."""
-    dev = torch.device("cuda:0") if dev is None else dev
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = nvidia_smi()
-    print(f"nvidia-smi: {smi}")
-    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
-    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
-    with tempfile.TemporaryDirectory() as work:
-        data_dir = os.path.join(work, "data")
-        os.makedirs(data_dir)
-        write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"),
-                         synthetic_digits(N_DIGITS))
-        xp = os.path.join(work, "cli")
-        cli_main.main(flagship_argv(xp, data_dir, 1, 5))
-        evaluation(dev, smi, model, cfg, xp, data_dir, work)
-
-
-def eval_kernel_timing(t0, params, flops_peak: float, bw_peak: float) -> dict:
-    """Both kernels at the t10 eval's rollout shapes (B 16, 15 steps), in
-    turns, beside the plain loop and the bound; keys for the kernels line."""
-    n = EVAL_ROLLOUT_STEPS
-    batch, code = t0.shape
-    hidden = params[0].shape[1]
-    plans = {"cluster": card_plan(batch, code, hidden, 1),
-             "stream": card_plan(batch, code, hidden, 1, variant="stream")}
-    runs = {v: [] for v in plans}
-    for v in ("stream", "cluster", "cluster", "stream"):
-        runs[v].append(cuda_ms(lambda: mlp_resnet_rollout(t0, params, n, plan=plans[v])))
-    plain = cuda_ms(lambda: mlp_resnet_rollout_reference(t0, params, n))
-    ops, nbytes = rollout_cost(batch, code, hidden, 1, n)
-    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-    bound = max(t_ops, t_bytes)
-    out = {}
-    for v, plan in plans.items():
-        out[v] = {"eval_shapes": f"B {batch}, code {code}, H {hidden}, 1 block, {n} steps",
-                  "eval_plan": plan._asdict(), "eval_ms": float(np.mean(runs[v])),
-                  "eval_plain_ms": plain, "eval_bound_ms": bound,
-                  "eval_bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        print(f"  {v} kernel at the t10 eval's rollout (B {batch} x {n} steps) {plan}: "
-              f"{out[v]['eval_ms']:.4f} ms ({runs[v][0]:.4f}, {runs[v][1]:.4f}); plain loop "
-              f"{plain:.4f} ms; bound {bound:.5f} ms by {out[v]['eval_bound_by']} "
-              f"({bound / out[v]['eval_ms']:.1%})")
-    return out
+    eval_idle({"bf16 checkpoint": bf16_model, "f32 seed 0": model}, data_dir)
+    t0, params = b16["t0"], b16["params"]
+    print(f"both kernels at the t10 eval's rollout (B {EVAL_B} x {EVAL_ROLLOUT_STEPS} steps):")
+    turns = rollout_turns(ctx, t0, params, EVAL_ROLLOUT_STEPS, {
+        "cluster": card_plan(EVAL_B, t0.shape[1], params[0].shape[1], 1),
+        "stream": card_plan(EVAL_B, t0.shape[1], params[0].shape[1], 1, variant="stream")})
+    return {"b16": b16, "bundle": bundle, "ssim": ssim, "turns": turns}
 
 
 # -- phase 10: WaveEq -----------------------------------------------------------
@@ -1866,7 +1658,7 @@ def wave_config(kind: str, data_dir: str, **kw) -> ExperimentConfig:
     return dataclasses.replace(cfg, **kw).validate()
 
 
-def wave_sampler(dev, data_dir: str) -> DeviceWaveEq:
+def wave_sampler(dev, data_dir: str) -> None:
     """Phase 10c: the recipe's train split on the card, windows of the same
     draws gathered on the card and on the CPU."""
     cfg = wave_config("wave", data_dir)
@@ -1881,22 +1673,17 @@ def wave_sampler(dev, data_dir: str) -> DeviceWaveEq:
     card = gen.gather(*draws).cpu()
     cpu = cpu_gen.gather(*(d.cpu() for d in draws))
     same = card.numpy().tobytes() == cpu.numpy().tobytes()
-    ms = cuda_ms(lambda: datagen_batch(gen, cfg, 0, rng), reps=10, inner=5)
-    kernels, busy_ms = device_kernels(lambda: datagen_batch(gen, cfg, 0, rng))
     mb = gen.flat.numel() * 4 / 1e6
     print(f"DeviceWaveEq: the train split ({gen.n_seq} sequences x {gen.nt} frames, "
           f"{len(gen)} windows of {gen.seq_len}) loaded in {load_s:.1f} s, {mb:.1f} MB on the "
-          f"card; one B {cfg.batch_size} batch of the same draws, card == CPU bitwise: {same}; "
-          f"datagen_batch {ms:.4f} ms between CUDA events, {kernels:.0f} device kernels busy "
-          f"{busy_ms:.4f} ms (profiler)")
+          f"card; one B {cfg.batch_size} batch of the same draws, card == CPU bitwise: {same}")
     check(same and tuple(card.shape) == (cfg.batch_size, gen.seq_len, 64, 64, 1),
           "WaveEq windows differ between the card and the CPU")
-    return gen
 
 
-def wave_train(dev, data_dir: str, work: str, wave_gen: DeviceWaveEq) -> dict:
-    """Phase 10d: both recipes through the train CLI, profiled; a mid-epoch
-    resume.  Returns {kind: xp_dir}."""
+def wave_train(dev, data_dir: str, work: str) -> dict:
+    """Phase 10d: both recipes through the train CLI; a mid-epoch resume.
+    Returns {kind: xp_dir}."""
     xps = {}
     for kind, flags in WAVE_RECIPES.items():
         xp = os.path.join(work, kind)
@@ -1925,19 +1712,6 @@ def wave_train(dev, data_dir: str, work: str, wave_gen: DeviceWaveEq) -> dict:
             print(f"  epoch {e}: {sps:.1f} samples/s = {cfg.batch_size / sps * 1e3:.3f} ms/step"
                   + (" (includes the first step's warm-up)" if e == 0 else ""))
         check(len(epochs) == WAVE_EPOCHS, f"{kind}: one samples/s row an epoch")
-        gen = wave_gen if kind == "wave" else registry.make_device_generator(cfg, device=dev)
-        step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
-        for _ in range(3):
-            step(state)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(WAVE_STEPS):
-            step(state)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t) / WAVE_STEPS * 1e3
-        print(f"  the fused step alone: {step_ms:.3f} ms/step, "
-              f"{cfg.batch_size / step_ms * 1e3:.1f} samples/s ({WAVE_STEPS} steps, fenced)")
-        profile_train_steps(state, lambda s, c, t: step(s), None, None)
         xps[kind] = xp
 
     train_resume_bitwise(dev, "wave", lambda run: wave_config(
@@ -2011,11 +1785,12 @@ def wave_eval_clis(xps: dict, data_dir: str, n_seq: int) -> dict:
     return out
 
 
-def wave_eval_f32(dev, data_dir: str, work: str, test: wave_eq.WaveEq, flops_peak: float,
-                  bw_peak: float) -> dict:
+def wave_eval_f32(ctx, data_dir: str, work: str, test: wave_eq.WaveEq) -> dict:
     """Phase 10f: the f32 seed-0 WaveEq model through the streaming kernel;
     the Evaluator on the card against the CPU; the kernel against plain at
-    the protocol's rollout shape, on windows of the test split ``test``."""
+    the protocol's rollout shape, on windows of the test split ``test``,
+    and timed there."""
+    dev = ctx.dev
     cfg = wave_config("wave", data_dir, precision="f32", nt_pred=eval_wave.NT_PRED, seed=0)
     model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
     xp = os.path.join(work, "wave_f32")
@@ -2056,93 +1831,26 @@ def wave_eval_f32(dev, data_dir: str, work: str, test: wave_eq.WaveEq, flops_pea
     with torch.inference_mode():
         t0 = model.encode_t(torch.from_numpy(cond).to(dev)).contiguous()
     params = model.t_resnet.flat_params()
-    n = WAVE_ROLLOUT_STEPS
-    out = mlp_resnet_rollout(t0, params, n)
-    ref = mlp_resnet_rollout_reference(t0, params, n)
-    rel = step_rel_err(out, ref)
-    abs_err = float((out - ref).abs().max())
-    print(f"  streaming kernel vs plain at B {WAVE_EVAL_B} x {n} steps x {cfg.n_blocks} blocks "
-          f"(code {cfg.code_size_t}, H {cfg.res_hidden_size}): worst step-relative error "
-          f"{rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}), max abs {abs_err:.3e} at max |t| "
-          f"{float(ref.abs().max()):.3e}")
-    check(rel <= ROLLOUT_REL_TOL, "streaming kernel disagrees with plain at the wave shape")
-    turns = stream_turns(t0, params, n, flops_peak, bw_peak)
-    check(turns["plan"] == plan, f"the timed plan {turns['plan']} is not the eval's {plan}")
-    return {"launches": launches, "plan": plan, "rel": rel, "abs": abs_err,
-            "n_batches": n_batches, **turns}
+    timed = card_plan(*t0.shape, params[0].shape[1], len(params) // 6)
+    check(timed == plan, f"the timed plan {timed} is not the eval's {plan}")
+    print("  the streaming kernel at the eval's plan and rollout (t0 from the test split):")
+    turns = rollout_turns(ctx, t0, params, WAVE_ROLLOUT_STEPS, {"stream": timed})
+    return {"launches": launches, "turns": turns}
 
 
-def stream_turns(t0, params, n: int, flops_peak: float, bw_peak: float, reps: int = 10,
-                 inner: int = 5) -> dict:
-    """The streaming kernel at (t0, n), at the plan the card gives it, timed
-    in turns with the plain and ``addmm`` loops (kernel, plain, addmm, addmm,
-    plain, kernel), beside its bound; prints its plan and us a block-step."""
-    b, code = t0.shape
-    hidden, n_blocks = params[0].shape[1], len(params) // 6
-    plan = card_plan(b, code, hidden, n_blocks)
-    check(plan.variant == "stream", f"{plan} is not the streaming kernel")
-    ref = mlp_resnet_rollout_reference(t0, params, n)
-    dev = t0.device
-    bufs = (torch.empty(n, b, code, device=dev), torch.empty(b, hidden, device=dev),
-            torch.empty(b, hidden, device=dev), torch.empty(b, code, device=dev))
-    check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
-          "addmm loop disagrees")
-    runs = {"stream": [], "plain": [], "addmm": []}
-    fns = {"stream": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
-           "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
-           "addmm": lambda: addmm_loop(t0, params, n, *bufs)}
-    for k in ("stream", "plain", "addmm", "addmm", "plain", "stream"):
-        runs[k].append(cuda_ms(fns[k], reps=reps, inner=inner))
-    ms = {k: float(np.mean(v)) for k, v in runs.items()}
-    ops, nbytes = rollout_cost(b, code, hidden, n_blocks, n)
-    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-    bound = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    block_step_us = ms["stream"] / ((n - 1) * n_blocks) * 1e3
-    print(f"  streaming kernel at B {b} x {n} steps x {n_blocks} blocks (code {code}, H "
-          f"{hidden}), {plan_text(plan)}, in turns: {ms['stream']:.4f} ms "
-          f"({runs['stream'][0]:.4f}, {runs['stream'][1]:.4f}), {block_step_us:.2f} us a "
-          f"block-step; plain loop {ms['plain']:.4f} ms; eager addmm loop {ms['addmm']:.4f} "
-          f"ms; bound {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
-          f"{t_ops:.4f} ms, {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
-          f"{t_bytes:.4f} ms: {bound:.4f} ms by {bound_by}, {bound / ms['stream']:.1%} of it; "
-          f"addmm / kernel {ms['addmm'] / ms['stream']:.2f}")
-    return {"plan": plan, "ms": ms, "bound_ms": bound, "bound_by": bound_by,
-            "block_step_us": block_step_us,
-            "shapes": f"B {b}, code {code}, H {hidden}, {n_blocks} blocks, {n} steps"}
-
-
-def wave_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
-    """Phase 10: WaveEq and WaveEq-100 on the card, in the working directory
-    ``work``.  Returns 10f's kernel figures."""
-    t_phase = time.perf_counter()
-    data_dir = os.path.join(work, "wave_data")
-    wave_simulator(dev)
-    wave_dataset(dev, data_dir)
-    gen = wave_sampler(dev, data_dir)
-    xps = wave_train(dev, data_dir, work, gen)
-    del gen
-    test = wave_eq.WaveEq(data_dir, 5, WAVE_ROLLOUT_STEPS, train=False)  # both recipes' nt_cond
-    wave_eval_clis(xps, data_dir, len(test))
-    f32 = wave_eval_f32(dev, data_dir, work, test, flops_peak, bw_peak)
-    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
-    return f32
-
-
-def phase10_only(dev=None) -> None:
-    """Phase 10 alone, a quicker run on the card than the whole script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase10_only()"
-    """
-    dev = torch.device("cuda:0") if dev is None else dev
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"nvidia-smi: {nvidia_smi()}")
-    card = torch.cuda.get_device_name(0)
-    flops_peak, bw_peak = card_peaks(card)[:2]
-    _build.build()
-    with tempfile.TemporaryDirectory() as work:
-        wave_phase(dev, work, flops_peak, bw_peak)
+def wave_phase(ctx) -> dict:
+    """Phase 10: WaveEq and WaveEq-100 on the card, in a working directory of
+    its own.  Returns 10f's launches and kernel figures."""
+    dev = ctx.dev
+    with tempfile.TemporaryDirectory(dir=ctx.work) as work:
+        data_dir = os.path.join(work, "wave_data")
+        wave_simulator(dev)
+        wave_dataset(dev, data_dir)
+        wave_sampler(dev, data_dir)
+        xps = wave_train(dev, data_dir, work)
+        test = wave_eq.WaveEq(data_dir, 5, WAVE_ROLLOUT_STEPS, train=False)  # both recipes' nt_cond
+        wave_eval_clis(xps, data_dir, len(test))
+        return wave_eval_f32(ctx, data_dir, work, test)
 
 
 # -- phase 11: 3D Chairs --------------------------------------------------------
@@ -2191,14 +1899,7 @@ def chairs_config(data_dir: str, **kw) -> ExperimentConfig:
     return dataclasses.replace(cfg, **kw).validate()
 
 
-def chairs_card_vs_cpu(dev) -> None:
-    """Phase 11b: the ResNet-18 encoder and DCGAN decoder of the seed-0 chairs
-    model, card against CPU, f32 (TF32 off) and bf16, eval and train mode;
-    one f32 chairs train step at B 8, card against CPU."""
-    modules_card_vs_cpu(dev, CHAIRS_RECIPE, "chairs", CHAIRS_EVAL_B, 11, 12, uniform=True)
-
-
-def chairs_data(dev, data_dir: str) -> DeviceChairs:
+def chairs_data(dev, data_dir: str) -> None:
     """Phase 11c: the stand-in corpus through cli.gen_synthetic, the train
     split on the card, and the same draws gathered on the card and read from
     the host items."""
@@ -2225,22 +1926,18 @@ def chairs_data(dev, data_dir: str) -> DeviceChairs:
     items = np.stack([np.concatenate(host[s * gen.n_objects + o])
                       for o, s in zip(obj.tolist(), start.tolist())])
     same = card.tobytes() == items.tobytes()
-    ms = cuda_ms(lambda: datagen_batch(gen, cfg, 0, rng), reps=10, inner=5)
-    kernels, busy_ms = device_kernels(lambda: datagen_batch(gen, cfg, 0, rng))
     print(f"DeviceChairs: the train split ({gen.n_objects} objects x 62 views, {len(gen)} "
           f"windows of {gen.seq_len}) decoded and uploaded in {load_s:.1f} s, "
           f"{gen.nbytes / 1e6:.1f} MB uint8 on the card; one B {cfg.batch_size} batch of the "
-          f"same draws, card == host Chairs items bitwise: {same}; datagen_batch {ms:.4f} ms "
-          f"between CUDA events, {kernels:.0f} device kernels busy {busy_ms:.4f} ms (profiler)")
+          f"same draws, card == host Chairs items bitwise: {same}")
     check(gen.n_objects == int(CHAIRS_OBJECTS * 0.85) and card.shape == (
         cfg.batch_size, gen.seq_len, 64, 64, 3), "DeviceChairs size or batch shape")
     check(same, "chairs windows differ between the card and the host items")
-    return gen
 
 
-def chairs_train(dev, data_dir: str, work: str, gen: DeviceChairs) -> str:
-    """Phase 11d: the recipe through the train CLI, profiled; a mid-epoch
-    resume; the host data path.  Returns the experiment directory."""
+def chairs_train(dev, data_dir: str, work: str) -> str:
+    """Phase 11d: the recipe through the train CLI; a mid-epoch resume; the
+    host data path.  Returns the experiment directory."""
     xp = os.path.join(work, "chairs")
     argv = ["--xp_dir", xp, "--data_dir", data_dir, *CHAIRS_RECIPE, "--seed", "0",
             "--epochs", str(CHAIRS_EPOCHS), "--steps_per_epoch", str(CHAIRS_STEPS),
@@ -2268,20 +1965,7 @@ def chairs_train(dev, data_dir: str, work: str, gen: DeviceChairs) -> str:
         print(f"  epoch {e}: {sps:.1f} samples/s = {cfg.batch_size / sps * 1e3:.3f} ms/step"
               + (" (includes the first step's warm-up)" if e == 0 else ""))
     check(len(epochs) == CHAIRS_EPOCHS, "chairs: one samples/s row an epoch")
-    step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
-    for _ in range(3):
-        step(state)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(CHAIRS_STEPS):
-        step(state)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) / CHAIRS_STEPS * 1e3
-    print(f"  the fused step alone: {step_ms:.3f} ms/step, "
-          f"{cfg.batch_size / step_ms * 1e3:.1f} samples/s ({CHAIRS_STEPS} steps, fenced)")
-    profile_train_steps(state, lambda s, c, t: step(s), None, None)
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del state, step
+    del state
 
     reset_launch_counts()
     train_resume_bitwise(dev, "chairs", lambda run: chairs_config(
@@ -2330,11 +2014,12 @@ def chairs_eval_cli(dev, xp: str, data_dir: str) -> None:
                 nt_pred=10, max_batches=RESUME_BATCHES, device=dev)
 
 
-def chairs_eval_f32(dev, data_dir: str, work: str, flops_peak: float, bw_peak: float) -> dict:
+def chairs_eval_f32(ctx, data_dir: str, work: str) -> dict:
     """Phase 11f: the f32 seed-0 chairs model through evaluate(model_bundle=...)
     over the whole test split (one cluster launch a batch); the Evaluator on
-    the card against the CPU; the kernel at the protocol's rollout shape
-    (B 16 x 15 steps) in turns with the plain and addmm loops."""
+    the card against the CPU; both kernels at the protocol's rollout shape
+    (B 16 x 15 steps), timed in turns with the plain and addmm loops."""
+    dev = ctx.dev
     cfg = chairs_config(data_dir, precision="f32", seed=0)
     model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
     xp = os.path.join(work, "chairs_f32")
@@ -2384,46 +2069,28 @@ def chairs_eval_f32(dev, data_dir: str, work: str, flops_peak: float, bw_peak: f
     with torch.inference_mode():
         cond = np.stack([test_set[i][0] for i in range(CHAIRS_EVAL_B)])
         t0 = model.encode_t(torch.from_numpy(cond).to(dev)).contiguous()
-    print("  the cluster kernel at the chairs eval's rollout (t0 from the test split):")
-    kernel = kernel_turns(t0, model.t_resnet.flat_params(), cfg.nt_cond + cfg.nt_pred,
-                          flops_peak, bw_peak)
-    return {**kernel, "launches": launches}
+    print("  both kernels at the chairs eval's rollout (t0 from the test split):")
+    turns = rollout_turns(ctx, t0, model.t_resnet.flat_params(), cfg.nt_cond + cfg.nt_pred, {
+        "cluster": plan, "stream": card_plan(CHAIRS_EVAL_B, cfg.code_size_t, cfg.res_hidden_size,
+                                             cfg.n_blocks, variant="stream")})
+    return {"launches": launches, "turns": turns}
 
 
-def chairs_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
+def chairs_phase(ctx) -> dict:
     """Phase 11 (b-f; 11a runs with phase 3's cases): 3D Chairs on the card,
-    in the working directory ``work``.  Returns 11f's kernel figures."""
+    in a working directory of its own.  Returns 11f's launches and kernel
+    figures."""
     import PIL
 
-    t_phase = time.perf_counter()
     print(f"phase 11: Pillow {PIL.__version__}")
-    data_dir = os.path.join(work, "chairs_data")
-    chairs_card_vs_cpu(dev)
-    gen = chairs_data(dev, data_dir)
-    xp = chairs_train(dev, data_dir, work, gen)
-    del gen
-    chairs_eval_cli(dev, xp, data_dir)
-    f32 = chairs_eval_f32(dev, data_dir, work, flops_peak, bw_peak)
-    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
-    return f32
-
-
-def phase11_only(dev=None) -> None:
-    """Phase 11 alone, 11a included, a quicker run on the card than the whole
-    script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase11_only()"
-    """
-    dev = torch.device("cuda:0") if dev is None else dev
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"nvidia-smi: {nvidia_smi()}")
-    card = torch.cuda.get_device_name(0)
-    flops_peak, bw_peak = card_peaks(card)[:2]
-    _build.build()
-    check_kernel_cases(chairs_kernel_cases(dev))
-    with tempfile.TemporaryDirectory() as work:
-        chairs_phase(dev, work, flops_peak, bw_peak)
+    with tempfile.TemporaryDirectory(dir=ctx.work) as work:
+        data_dir = os.path.join(work, "chairs_data")
+        modules_card_vs_cpu(ctx.dev, CHAIRS_RECIPE, "chairs", CHAIRS_EVAL_B, 11, 12,   # 11b
+                            uniform=True)
+        chairs_data(ctx.dev, data_dir)
+        xp = chairs_train(ctx.dev, data_dir, work)
+        chairs_eval_cli(ctx.dev, xp, data_dir)
+        return chairs_eval_f32(ctx, data_dir, work)
 
 
 # -- phases 12 and 13: TaxiBJ and SST ----------------------------------------------
@@ -2441,7 +2108,6 @@ SST_WIDE_ZONE = 256         # the full-basin stretch grid, one forward
 # 12c/13c's CLI runs (cut from 2 x 20 for phase 16's time, see PERF.md
 # section 4).
 CORPUS_EPOCHS, CORPUS_STEPS = 2, 10
-CORPUS_TIMED_STEPS = 10
 CORPUS_RESUME_STEPS, CORPUS_RESUME_STOP_AFTER = 6, 8   # 2 epochs x 6 steps, stopped after 8
 # The last logged loss (step 20) against the first (step 5), a fresh batch
 # every step: it must fall.
@@ -2467,7 +2133,7 @@ def corpus_config(recipe: list, **kw) -> ExperimentConfig:
 
 def modules_card_vs_cpu(dev, recipe: list, label: str, batch: int, x_seed: int, seq_seed: int,
                         uniform: bool = False) -> None:
-    """Phases 12a and 13a: the seed-0 model's encoder, decoder and (for SST)
+    """Phases 11b, 12a and 13a: the seed-0 model's encoder, decoder and (for SST)
     integrator, card against CPU, f32 (TF32 off) and bf16, eval and train
     mode, each on the CPU encoder's outputs so that each module is held
     alone; then one f32 train step at B 8, card against CPU.  Inputs are
@@ -2529,7 +2195,7 @@ def modules_card_vs_cpu(dev, recipe: list, label: str, batch: int, x_seed: int, 
 def corpus_sampler(dev, label: str, cfg, host, gen, make_s: float, build_s: float,
                    upload_s: float) -> None:
     """Phases 12b and 13b: one batch of the same draws gathered on the card
-    and read from the host items, bitwise; the sampler's ms a batch."""
+    and read from the host items, bitwise."""
     rng = torch.Generator(device=dev)
     rng.manual_seed(step_seed(cfg.seed, DATA_SALT, 0))
     draws = gen.draw(rng, cfg.batch_size)
@@ -2540,26 +2206,22 @@ def corpus_sampler(dev, label: str, cfg, host, gen, make_s: float, build_s: floa
         idx = draws.tolist()
     items = np.stack([np.concatenate(host[i][:2]) for i in idx])
     same = card.tobytes() == items.tobytes()
-    ms = cuda_ms(lambda: datagen_batch(gen, cfg, 0, rng), reps=10, inner=5)
-    kernels, busy_ms = device_kernels(lambda: datagen_batch(gen, cfg, 0, rng))
     print(f"{type(gen).__name__} ({label}): stand-in made in memory in {make_s:.1f} s, the "
           f"train split built in {build_s:.1f} s, uploaded in {upload_s:.1f} s: {len(gen)} "
           f"windows of {gen.seq_len}, {gen.nbytes / 1e6:.1f} MB on the card; one B "
-          f"{cfg.batch_size} batch of the same draws, card == host items bitwise: {same}; "
-          f"datagen_batch {ms:.4f} ms between CUDA events, {kernels:.0f} device kernels busy "
-          f"{busy_ms:.4f} ms (profiler)")
+          f"{cfg.batch_size} batch of the same draws, card == host items bitwise: {same}")
     check(card.shape == (cfg.batch_size, gen.seq_len) + cfg.frame_shape,
           f"{label}: batch shape {card.shape}")
     check(same, f"{label} windows differ between the card and the host items")
 
 
-def corpus_train(dev, label: str, recipe: list, gen, work: str) -> tuple:
+def corpus_train(dev, label: str, recipe: list, gen, work: str, trace: bool = False) -> str:
     """Phases 12c and 13c: the recipe through ``run_training`` with the
     sampler over the stand-in held in memory (phase 18e runs the train CLI
     over the stand-in's HDF5 files), 2 epochs x 10 steps: the loss falls, 0
-    launches, samples/s, the fused step's ms, a profiler trace; then a
-    mid-epoch resume, bitwise.  Returns (the experiment directory, the
-    profiler's figures)."""
+    launches, samples/s; with ``trace``, a profiler trace of one fused step
+    (PERF.md cites TaxiBJ's idle share); then a mid-epoch resume, bitwise.
+    Returns the experiment directory."""
     xp = os.path.join(work, label)
     cfg = corpus_config(recipe, xp_dir=xp, seed=0, epochs=CORPUS_EPOCHS,
                         steps_per_epoch=CORPUS_STEPS)
@@ -2587,20 +2249,13 @@ def corpus_train(dev, label: str, recipe: list, gen, work: str) -> tuple:
         print(f"  epoch {e}: {sps:.1f} samples/s = {cfg.batch_size / sps * 1e3:.3f} ms/step"
               + (" (includes the first step's warm-up)" if e == 0 else ""))
     check(len(epochs) == CORPUS_EPOCHS, f"{label}: one samples/s row an epoch")
-    step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
-    for _ in range(3):
-        step(state)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(CORPUS_TIMED_STEPS):
-        step(state)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) / CORPUS_TIMED_STEPS * 1e3
-    print(f"  the fused step alone: {step_ms:.3f} ms/step, "
-          f"{cfg.batch_size / step_ms * 1e3:.1f} samples/s ({CORPUS_TIMED_STEPS} steps, fenced)")
-    prof = profile_train_steps(state, lambda s, c, t: step(s), None, None)
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del state, step
+    if trace:
+        step = make_fused_datagen_step(state.model, cfg, state.optimizer, gen)
+        prof = device_profile(lambda: step(state), 1)
+        print(f"  the fused step, one traced: {prof['wall_ms']:.3f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle {prof['idle']:.1%}; {prof['kernels']:.0f} device "
+              f"kernels")
+    del state
     reset_launch_counts()
     train_resume_bitwise(dev, label, lambda run: corpus_config(
         recipe, xp_dir=os.path.join(work, f"{label}_resume_{run}"), seed=0,
@@ -2608,7 +2263,7 @@ def corpus_train(dev, label: str, recipe: list, gen, work: str) -> tuple:
         CORPUS_EPOCHS * CORPUS_RESUME_STEPS, CORPUS_RESUME_STOP_AFTER, device_gen=gen)
     check(mlp_resnet_rollout.variant_launches == {"cluster": 0, "stream": 0},
           f"{label}: the resume runs launched the kernel")
-    return xp, {"ms_step": step_ms, **prof}
+    return xp
 
 
 def corpus_eval_checkpoint(dev, xp: str, label: str, evaluate, test_set, n_seq: int,
@@ -2634,55 +2289,10 @@ def corpus_eval_checkpoint(dev, xp: str, label: str, evaluate, test_set, n_seq: 
     return {"wall_s": wall, "means": means}
 
 
-def kernel_turns(t0, params, n, flops_peak: float, bw_peak: float) -> dict:
-    """The kernel at (t0, n) against its plain version, then timed in turns
-    with the streaming kernel, the plain and addmm loops, beside its bound."""
-    batch, code = t0.shape
-    hidden = params[0].shape[1]
-    plan = card_plan(batch, code, hidden, len(params) // 6)
-    ref = mlp_resnet_rollout_reference(t0, params, n)
-    reset_launch_counts()
-    out = mlp_resnet_rollout(t0, params, n)
-    torch.cuda.synchronize()
-    check(mlp_resnet_rollout.variant_launches[plan.variant] == 1, "one kernel launch")
-    rel, abs_err = step_rel_err(out, ref), float((out - ref).abs().max())
-    dev = t0.device
-    bufs = (torch.empty(n, batch, code, device=dev), torch.empty(batch, hidden, device=dev),
-            torch.empty(batch, hidden, device=dev), torch.empty(batch, code, device=dev))
-    check(step_rel_err(addmm_loop(t0, params, n, *bufs), ref) <= ROLLOUT_REL_TOL,
-          "addmm loop disagrees")
-    stream = card_plan(batch, code, hidden, len(params) // 6, variant="stream")
-    fns = {"cluster": lambda: mlp_resnet_rollout(t0, params, n, plan=plan),
-           "stream": lambda: mlp_resnet_rollout(t0, params, n, plan=stream),
-           "plain": lambda: mlp_resnet_rollout_reference(t0, params, n),
-           "addmm": lambda: addmm_loop(t0, params, n, *bufs)}
-    runs = {k: [] for k in fns}
-    for k in ("cluster", "stream", "plain", "addmm", "addmm", "plain", "stream", "cluster"):
-        runs[k].append(cuda_ms(fns[k], reps=10, inner=5))
-    ms = {k: float(np.mean(v)) for k, v in runs.items()}
-    ops, nbytes = rollout_cost(batch, code, hidden, len(params) // 6, n)
-    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-    bound = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"  {plan.variant} kernel {plan} vs plain: worst step-relative error {rel:.3e} "
-          f"(tolerance {ROLLOUT_REL_TOL:g}), max abs {abs_err:.3e}")
-    check(rel <= ROLLOUT_REL_TOL, f"the {plan.variant} kernel disagrees with plain")
-    print(f"  at B {batch} x {n} steps, code {code}, H {hidden}, in turns: cluster kernel "
-          f"{ms['cluster']:.4f} ms ({runs['cluster'][0]:.4f}, {runs['cluster'][1]:.4f}), "
-          f"{ms['cluster'] / (n - 1) * 1e3:.2f} us a block-step; streaming kernel "
-          f"{ms['stream']:.4f} ms; plain loop {ms['plain']:.4f} ms; eager addmm loop "
-          f"{ms['addmm']:.4f} ms; bound {ops / 1e9:.4f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s "
-          f"f32 = {t_ops:.5f} ms, {nbytes / 1e6:.4f} MB at {bw_peak / 1e12:.2f} TB/s = "
-          f"{t_bytes:.5f} ms: {bound:.5f} ms by {bound_by}, {bound / ms['cluster']:.1%} of the "
-          f"cluster kernel")
-    return {"rel": rel, "abs": abs_err, "ms": ms, "bound_ms": bound, "bound_by": bound_by,
-            "plan": plan, "shapes": f"B {batch}, code {code}, H {hidden}, "
-                                    f"{len(params) // 6} block(s), {n} steps"}
-
-
-def taxibj_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
-    """Phase 12: TaxiBJ on the card.  Returns 12e's kernel figures."""
-    t_phase = time.perf_counter()
+def taxibj_phase(ctx, work: str) -> dict:
+    """Phase 12: TaxiBJ on the card.  Returns 12e's launches and kernel
+    figures, the experiment and the splits."""
+    t_phase, dev = time.perf_counter(), ctx.dev
     modules_card_vs_cpu(dev, TAXIBJ_RECIPE, "TaxiBJ", CORPUS_CPU_B, 12, 13)   # 12a
     t = time.perf_counter()
     years = [(data, dates) for _, data, dates in synthetic_corpora.taxibj_years(TAXIBJ_DAYS)]
@@ -2699,10 +2309,10 @@ def taxibj_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
     upload_s = time.perf_counter() - t
     check(len(test) == TAXIBJ_TEST_SEQS, "the TaxiBJ test split's size")
     corpus_sampler(dev, "TaxiBJ", cfg, train, gen, make_s, build_s, upload_s)   # 12b
-    xp, prof = corpus_train(dev, "taxibj", TAXIBJ_RECIPE, gen, work)           # 12c
+    xp = corpus_train(dev, "taxibj", TAXIBJ_RECIPE, gen, work, trace=True)     # 12c
     del gen
-    ckpt = corpus_eval_checkpoint(dev, xp, "TaxiBJ mse_t4", eval_taxibj.evaluate, test,  # 12d
-                                  TAXIBJ_TEST_SEQS, "taxibj")
+    corpus_eval_checkpoint(dev, xp, "TaxiBJ mse_t4", eval_taxibj.evaluate, test,  # 12d
+                           TAXIBJ_TEST_SEQS, "taxibj")
     # 12e: the f32 seed-0 model through evaluate(model_bundle=...)
     cfg = corpus_config(TAXIBJ_RECIPE, precision="f32", seed=0)
     model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
@@ -2733,10 +2343,11 @@ def taxibj_phase(dev, work: str, flops_peak: float, bw_peak: float) -> dict:
     with torch.inference_mode():
         cond = torch.from_numpy(test.data[:TAXIBJ_EVAL_B, :cfg.nt_cond].copy()).to(dev)
         t0 = model.encode_t(cond).contiguous()
-    kernel = kernel_turns(t0, model.t_resnet.flat_params(), cfg.nt_cond + 4, flops_peak, bw_peak)
+    turns = rollout_turns(ctx, t0, model.t_resnet.flat_params(), cfg.nt_cond + 4, {
+        "cluster": plan, "stream": card_plan(TAXIBJ_EVAL_B, cfg.code_size_t, cfg.res_hidden_size,
+                                             cfg.n_blocks, variant="stream")})
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
-    return {**kernel, "launches": launches, "train": prof, "ckpt": ckpt, "xp": xp,
-            "splits": (train, test)}
+    return {"launches": launches, "turns": turns, "xp": xp, "splits": (train, test)}
 
 
 def sst_phase(dev, work: str) -> dict:
@@ -2771,7 +2382,7 @@ def sst_phase(dev, work: str) -> dict:
     upload_s = time.perf_counter() - t
     check(len(test) == SST_TEST_SEQS, "the SST test split's size")
     corpus_sampler(dev, "SST", cfg, train, gen, make_s, build_s, upload_s)   # 13b
-    xp, prof = corpus_train(dev, "sst", SST_RECIPE, gen, work)               # 13c
+    xp = corpus_train(dev, "sst", SST_RECIPE, gen, work)                     # 13c
     del gen
     ckpt = corpus_eval_checkpoint(dev, xp, "SST", eval_sst.evaluate, test, SST_TEST_SEQS, "sst",
                                   zones=SST_TEST_ZONES, reference_broadcast=False)   # 13d
@@ -2805,26 +2416,15 @@ def sst_phase(dev, work: str) -> dict:
         check(mse_err <= EVAL_MSE_RTOL and ssim_err <= SST_SSIM_ATOL,
               "SST scores, card against CPU")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "train": prof, "ckpt": ckpt, "xp": xp, "splits": (train, test)}
+    return {"launches": launches, "xp": xp, "splits": (train, test)}
 
 
-def phase12_13_only(dev=None) -> None:
-    """Phases 12 and 13 alone, a quicker run on the card than the whole
-    script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase12_13_only()"
-
-    ``phase18_only`` runs them with phase 18 after them."""
-    dev = torch.device("cuda:0") if dev is None else dev
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"nvidia-smi: {nvidia_smi()}")
-    card = torch.cuda.get_device_name(0)
-    flops_peak, bw_peak = card_peaks(card)[:2]
-    _build.build()
-    with tempfile.TemporaryDirectory() as work:
-        taxibj_phase(dev, work, flops_peak, bw_peak)
-        sst_phase(dev, work)
+def taxibj_and_sst(ctx) -> dict:
+    """Phases 12 and 13, the product ``ctx.corpora`` that phase 18 reads: their
+    experiments and splits, in a directory that outlives them."""
+    work = os.path.join(ctx.work, "corpora")
+    os.makedirs(work)
+    return {"taxibj": taxibj_phase(ctx, work), "sst": sst_phase(ctx.dev, work)}
 
 
 # -- phase 18: TaxiBJ and SST from their HDF5 files ------------------------------
@@ -2997,7 +2597,8 @@ def hdf5_eval_clis(dev, taxibj_dir: str, sst_dir: str, work: str, taxibj: dict,
             memory = evaluate(xp_dir, "", test_set=test, device=dev)
             torch.cuda.synchronize()
             mem_launches = dict(mlp_resnet_rollout.variant_launches)
-            _, secs, cli_launches = run_main(main, ["--xp_dir", xp_dir, "--data_dir", data_dir])
+            _, secs, cli_launches = run_main(f"  test_{label} CLI", main,
+                                             ["--xp_dir", xp_dir, "--data_dir", data_dir])
             files = json.load(open(os.path.join(xp_dir, "evals.json")))[label]
             same = all(files[k] == v for k, v in memory.items())
             print(f"  test_{label} CLI from the files on phase {12 if label == 'taxibj' else 13}"
@@ -3017,36 +2618,18 @@ def hdf5_eval_clis(dev, taxibj_dir: str, sst_dir: str, work: str, taxibj: dict,
     return out
 
 
-def hdf5_phase(dev, work: str, taxibj: dict, sst: dict) -> dict:
+def hdf5_phase(ctx) -> dict:
     """Phase 18: TaxiBJ and SST from their HDF5 files, beside phases
-    12-13's in-memory route.  Returns 18e-f's launches."""
-    t_phase = time.perf_counter()
-    taxibj_dir, sst_dir = os.path.join(work, "taxibj_data"), os.path.join(work, "sst_data")
-    seconds = hdf5_files(taxibj_dir, sst_dir)                       # 18a
-    hdf5_datasets(taxibj_dir, sst_dir, taxibj, sst)                 # 18c-d
-    hdf5_verify(taxibj_dir, sst_dir)                                # 18b
-    train = hdf5_train_cli(taxibj_dir, work)                        # 18e
-    evals = hdf5_eval_clis(dev, taxibj_dir, sst_dir, work, taxibj, sst)   # 18f
-    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    12-13's in-memory route (``ctx.corpora``).  Returns 18e-f's launches."""
+    taxibj, sst = ctx.corpora["taxibj"], ctx.corpora["sst"]
+    with tempfile.TemporaryDirectory(dir=ctx.work) as work:
+        taxibj_dir, sst_dir = os.path.join(work, "taxibj_data"), os.path.join(work, "sst_data")
+        seconds = hdf5_files(taxibj_dir, sst_dir)                       # 18a
+        hdf5_datasets(taxibj_dir, sst_dir, taxibj, sst)                 # 18c-d
+        hdf5_verify(taxibj_dir, sst_dir)                                # 18b
+        train = hdf5_train_cli(taxibj_dir, work)                        # 18e
+        evals = hdf5_eval_clis(ctx.dev, taxibj_dir, sst_dir, work, taxibj, sst)   # 18f
     return {"train": train, "evals": evals, "seconds": seconds}
-
-
-def phase18_only(dev=None) -> None:
-    """Phases 12 and 13, then 18 on their experiments::
-
-        python3 -c "import chip_smoke; chip_smoke.phase18_only()"
-    """
-    dev = torch.device("cuda:0") if dev is None else dev
-    torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"nvidia-smi: {nvidia_smi()}")
-    card = torch.cuda.get_device_name(0)
-    flops_peak, bw_peak = card_peaks(card)[:2]
-    _build.build()
-    with tempfile.TemporaryDirectory() as work:
-        taxibj = taxibj_phase(dev, work, flops_peak, bw_peak)
-        sst = sst_phase(dev, work)
-        hdf5_phase(dev, work, taxibj, sst)
 
 
 # -- phase 14: --no_s, the stability probe and the operations tooling ------------
@@ -3114,14 +2697,21 @@ def as_f64(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
-def no_s_wave(dev, work: str) -> dict:
-    """Phase 14a: the wave recipe with ``--no_s`` at full width, f32, trained
-    a few steps through the train CLI, then its eval forecast through the
-    streaming kernel against the CPU.  Returns the data dir, the xp dir and
-    the forecast's launches."""
-    data_dir = os.path.join(work, "wave_data")
+def write_small_wave(ctx) -> str:
+    """The product ``ctx.small_wave``: a small ``gen_wave`` corpus made on the
+    card, which 14a trains on and verifies and 15f scores.  Returns its
+    directory."""
+    data_dir = os.path.join(ctx.work, "wave_small")
     wave_eq.generate_dataset(data_dir, OPS_WAVE_SEQS, OPS_WAVE_SEQ_LEN, seed=WAVE_SEED,
-                             device=dev)
+                             device=ctx.dev)
+    return data_dir
+
+
+def no_s_wave(dev, work: str, data_dir: str) -> dict:
+    """Phase 14a: the wave recipe with ``--no_s`` at full width, f32, trained
+    a few steps through the train CLI on the corpus in ``data_dir``, then its
+    eval forecast through the streaming kernel against the CPU.  Returns the
+    xp dir and the forecast's launches."""
     xp = os.path.join(work, "xps", "wave_no_s")
     argv = ["--xp_dir", xp, "--data_dir", data_dir, *WAVE_RECIPES["wave"], "--no_s",
             "--precision", "f32", "--seed", "0", "--epochs", "1", "--steps_per_epoch",
@@ -3195,8 +2785,7 @@ def no_s_wave(dev, work: str) -> dict:
     check(rel_t <= ROLLOUT_REL_TOL and rel_comfort <= ENC_F32_TOL and rel_card <= NO_S_DEC_TOL,
           "the --no_s forecast, card against CPU")
     check(bool((s == 1).all() and (ref_s == 1).all()), "the --no_s S code is not all ones")
-    return {"data_dir": data_dir, "xp": xp, "launches": launches,
-            "train_launches": train_launches}
+    return {"xp": xp, "launches": launches, "train_launches": train_launches}
 
 
 def monitor_bitwise(dev, data_dir: str, work: str) -> dict:
@@ -3247,16 +2836,6 @@ def monitor_bitwise(dev, data_dir: str, work: str) -> dict:
     check(launches[False] == {"cluster": 0, "stream": 0}
           and launches[True] == {"cluster": n_ckpt, "stream": 0},
           "not one cluster launch a probe")
-    # what the probe costs: one more probe of the trained model, fenced
-    probe = make_rollout_probe(states[True].model, max(FLAGSHIP["nt_pred"], 10))
-    cond = np.random.default_rng(0).standard_normal(
-        (8, FLAGSHIP["nt_cond"], 64, 64, 1)).astype(np.float32)
-    finalize_probe(probe(None, cond))
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    finalize_probe(probe(None, cond))
-    print(f"  one probe of the trained model (8 windows, {max(FLAGSHIP['nt_pred'], 10)} steps, "
-          f"the report fetched): {(time.perf_counter() - t) * 1e3:.1f} ms (host clock)")
     return {"xp": xps[True], "launches": launches[True]}
 
 
@@ -3437,79 +3016,51 @@ def ops_tools(work: str, phase9_xp: str, wave_dir: str) -> None:
         check(rc == 0, f"verify_corpus {benchmark}")
 
 
-def ops_phase(dev, work: str, data_dir: str, phase8_xp: str) -> dict:
+def ops_phase(ctx) -> dict:
     """Phase 14: ``--no_s``, the stability probe (``diagnose`` and
     ``--monitor_stability``) on the rollout kernel, ``supervise``,
     ``summarize``, ``visualize``, ``verify_corpus`` and ``gen_synthetic
-    mnist``.  ``data_dir``/``phase8_xp``: phase 8's digits and bf16
-    checkpoint, which also holds phase 9's eval archive.  Returns the
-    kernels' launches on the new paths."""
-    t_phase = t = time.perf_counter()
-
-    def sub(label):
-        nonlocal t
-        print(f"phase {label}: {time.perf_counter() - t:.1f} s")
+    mnist``, in a working directory of its own, on phase 8's digits and bf16
+    checkpoint, phase 9's eval archive in it, and ``ctx.small_wave``.
+    Returns the kernels' launches on the new paths."""
+    dev, data_dir, phase8_xp = ctx.dev, ctx.digits.data_dir, ctx.eval_archive
+    wave_dir = ctx.small_wave
+    with tempfile.TemporaryDirectory(dir=ctx.work) as work:
         t = time.perf_counter()
 
-    no_s = no_s_wave(dev, work)
-    sub("14a")
-    monitor = monitor_bitwise(dev, data_dir, work)
-    sub("14c")
-    flagship, _ = diagnose_on_card(monitor["xp"], "f32 flagship, cluster kernel", "cluster")
-    wave, _ = diagnose_on_card(no_s["xp"], "f32 WaveEq --no_s, 3 blocks, streaming kernel",
-                               "stream")
-    bf16, reports = diagnose_on_card(phase8_xp, "phase 8's bf16 flagship checkpoint", None)
-    for name, rep in reports:
-        print(f"  bf16 checkpoint {name}: gain/step {rep['gain_geomean']:.4f}, projected growth "
-              f"over t+{rep['horizon']} {rep['projected_growth_at_horizon']:.4g}x, mean|S| "
-              f"{float(rep['s_mean_abs']):.4g}, BatchNorm max running var "
-              f"{rep['bn']['max_var']:.4g}: verdict {rep['verdict']}")
-    sub("14b")
-    supervised = supervised_train(dev, data_dir, work)
-    sub("14d")
-    ops_tools(work, phase8_xp, no_s["data_dir"])
-    sub("14e")
-    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
-    return {"no_s": no_s["launches"], "no_s_train": no_s["train_launches"],
-            "monitor": monitor["launches"], "flagship": flagship, "wave": wave, "bf16": bf16,
-            "supervised": supervised}
+        def sub(label):
+            nonlocal t
+            print(f"phase {label}: {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
 
-
-def phase14_only(dev=None) -> None:
-    """Phase 14 alone, a quicker run on the card than the whole script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase14_only()"
-
-    It trains the bf16 flagship through the train CLI for 2 epochs of 3
-    steps and archives 2 batches of its t10 eval, in place of phases 8 and
-    9, then runs phase 14."""
-    dev = torch.device("cuda:0") if dev is None else dev
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"nvidia-smi: {nvidia_smi()}")
-    _build.build()
-    with tempfile.TemporaryDirectory() as work:
-        data_dir = os.path.join(work, "data")
-        os.makedirs(data_dir)
-        write_idx_images(os.path.join(data_dir, "train-images-idx3-ubyte"),
-                         synthetic_digits(N_DIGITS))
-        write_idx_images(os.path.join(data_dir, "t10k-images-idx3-ubyte"),
-                         synthetic_digits(N_TEST_DIGITS, seed=1))
-        write_idx_labels(os.path.join(data_dir, "t10k-labels-idx1-ubyte"),
-                         (np.arange(N_TEST_DIGITS) % 10).astype(np.uint8))
-        make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
-        xp = os.path.join(work, "cli")
-        cli_main.main(flagship_argv(xp, data_dir, 2, 3, "--chkpt_interval", "1"))
-        cli_test_mnist.main(["--xp_dir", xp, "--data_dir", data_dir, "--nt_pred", "10",
-                             "--max_batches", "2"])
-        ops_phase(dev, work, data_dir, xp)
+        no_s = no_s_wave(dev, work, wave_dir)
+        sub("14a")
+        monitor = monitor_bitwise(dev, data_dir, work)
+        sub("14c")
+        flagship, _ = diagnose_on_card(monitor["xp"], "f32 flagship, cluster kernel", "cluster")
+        wave, _ = diagnose_on_card(no_s["xp"], "f32 WaveEq --no_s, 3 blocks, streaming kernel",
+                                   "stream")
+        bf16, reports = diagnose_on_card(phase8_xp, "phase 8's bf16 flagship checkpoint", None)
+        for name, rep in reports:
+            print(f"  bf16 checkpoint {name}: gain/step {rep['gain_geomean']:.4f}, projected "
+                  f"growth over t+{rep['horizon']} {rep['projected_growth_at_horizon']:.4g}x, "
+                  f"mean|S| {float(rep['s_mean_abs']):.4g}, BatchNorm max running var "
+                  f"{rep['bn']['max_var']:.4g}: verdict {rep['verdict']}")
+        sub("14b")
+        supervised = supervised_train(dev, data_dir, work)
+        sub("14d")
+        ops_tools(work, phase8_xp, wave_dir)
+        sub("14e")
+        return {"no_s": no_s["launches"], "no_s_train": no_s["train_launches"],
+                "monitor": monitor["launches"], "flagship": flagship, "wave": wave, "bf16": bf16,
+                "supervised": supervised}
 
 
 # -- phase 15: data and tensor parallelism on one card ---------------------
 # 15b's two processes share the card over gloo; 15a's group is one rank over
 # NCCL.  One card cannot show NCCL across ranks or several hosts.
 PAR_TIMEOUT_S = 600.0
-PAR_BF16_WARMUP, PAR_BF16_STEPS = 3, 10
+PAR_BF16_STEPS = 3          # 15b's bf16 steps on each rank, its loss finite after them
 # 15b, two ranks against one process on the card: the CPU test's tolerances
 # (tests/test_torch_parallel_train.py): the loss within rel 1e-4, the
 # rank-averaged gradients within 1e-4 of each layer's max |g|, the BatchNorm
@@ -3560,7 +3111,7 @@ def par_sgd_state(cfg, dev):
 def parallel_rank(out: str, t_launch: float) -> None:
     """One of 15b's two ranks, both on this card over gloo: (1) one f32 and
     one f64 step of the flagship on the global batch split in two, data
-    parallel; (2) the bf16 flagship's steps timed.  Writes
+    parallel; (2) ``PAR_BF16_STEPS`` bf16 flagship steps.  Writes
     ``par_rank<r>.pt``: the results, the rollout kernel's launches over all
     of the rank's steps, and the seconds from ``t_launch`` (the parent's
     ``time.time()`` before the spawn) to each stage's end."""
@@ -3592,18 +3143,10 @@ def parallel_rank(out: str, t_launch: float) -> None:
     bf16 = ExperimentConfig(**FLAGSHIP)
     state = create_train_state(bf16, steps_per_epoch=100, device=dp.local_device)
     step = make_train_step(state.model, bf16, state.optimizer, dp)
-    for _ in range(PAR_BF16_WARMUP):
-        step(state, cond, target)
-    torch.cuda.synchronize()
-    res["seconds"]["bf16 warm-up"] = time.time() - t_launch
-    dist.barrier()
-    t = time.perf_counter()
     for _ in range(PAR_BF16_STEPS):
         m = step(state, cond, target)
-    torch.cuda.synchronize()
-    res["bf16_ms"] = (time.perf_counter() - t) / PAR_BF16_STEPS * 1e3
     res["bf16_loss"] = float(m["loss"])
-    res["seconds"]["bf16 timed steps"] = time.time() - t_launch
+    res["seconds"]["bf16 steps"] = time.time() - t_launch
     res["launches"] = dict(mlp_resnet_rollout.variant_launches)
     torch.save(res, os.path.join(out, f"par_rank{rank}.pt"))
 
@@ -3711,7 +3254,7 @@ def world_one_nccl(dev, work: str) -> dict:
     return dict(mlp_resnet_rollout.variant_launches)
 
 
-def two_processes_on_one_card(dev, work: str, bf16_ms: float) -> dict:
+def two_processes_on_one_card(dev, work: str) -> dict:
     """15b: ``parallel_rank`` in two processes sharing the card over gloo,
     held against one process on the card."""
     from spatiotemporal_variable_separation_tpu_torch.parallel.distributed import launch
@@ -3771,16 +3314,11 @@ def two_processes_on_one_card(dev, work: str, bf16_ms: float) -> dict:
           "the ranks' averaged gradients differ")
     check(all(torch.equal(a["stats"][n], b["stats"][n]) for n in a["stats"]),
           "the ranks' BatchNorm statistics differ")
-    ms = ranks[0]["bf16_ms"]
-    print(f"  bf16 flagship, two processes sharing one card's SMs, B {FLAGSHIP['batch_size']} = "
-          f"2 x {FLAGSHIP['batch_size'] // 2}: {ms:.3f} ms/step, "
-          f"{FLAGSHIP['batch_size'] / ms * 1e3:.1f} samples/s ({PAR_BF16_WARMUP} warm-up, mean "
-          f"of {PAR_BF16_STEPS}); one process (phase 7): {bf16_ms:.3f} ms/step, "
-          f"{FLAGSHIP['batch_size'] / bf16_ms * 1e3:.1f} samples/s. A record of one card "
-          "shared, not a multi-GPU speed")
+    print(f"  bf16 flagship, two processes sharing one card, B {FLAGSHIP['batch_size']} = "
+          f"2 x {FLAGSHIP['batch_size'] // 2}: rank 0's loss after {PAR_BF16_STEPS} steps "
+          f"{ranks[0]['bf16_loss']:.4f}")
     check(np.isfinite(ranks[0]["bf16_loss"]), "non-finite two-rank bf16 loss")
-    return {"bf16_ms": ms, "launches": {v: sum(res["launches"][v] for res in ranks)
-                                        for v in ranks[0]["launches"]}}
+    return {v: sum(res["launches"][v] for res in ranks) for v in ranks[0]["launches"]}
 
 
 def sharded_eval(dev, model, cfg, test_set) -> dict:
@@ -3810,19 +3348,6 @@ def sharded_eval(dev, model, cfg, test_set) -> dict:
         check(fc2.shape == fc1.shape, "sharded forecast shape")
         check_frames(fc2.cpu().numpy(), fc1.cpu().numpy(),
                      f"  sharded forecast against one device, {label}")
-    items = eval_batch(test_set, 0)
-    cond, target = np.stack([c for c, _ in items]), np.stack([t for _, t in items])
-    rates = {}
-    for label, ev in (("one device", ev1), (f"mesh {mesh.entries}", ev2)):
-        ev.score(cond, target, nt_skip=cfg.nt_cond)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(EVAL_TIMING_BATCHES):
-            ev.score(cond, target, nt_skip=cfg.nt_cond)
-        torch.cuda.synchronize()
-        rates[label] = EVAL_TIMING_BATCHES * EVAL_B / (time.perf_counter() - t)
-    print("  Evaluator.score at B 16 (t10), sequences/s: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in rates.items()))
     return {"launches": launches}
 
 
@@ -3846,20 +3371,14 @@ def sharded_serving(dev, model, cfg) -> dict:
     for b, a in answers.items():
         check_frames(a, one.predict(cond[:b]), f"  {b}-window answer over the mesh against one "
                      "device")
-    for label, fc in (("one device", one), (f"mesh {mesh.entries}", two)):
-        stats = fc.benchmark(n_iters=15, warmup=3)
-        print(f"  {label}: p50 {stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms, "
-              f"{stats['frames_per_sec']:.1f} frames/s")
     return {"launches": launches["cluster"]}
 
 
-def eval_cli_devices(dev, work: str) -> dict:
+def eval_cli_devices(dev, work: str, data_dir: str) -> dict:
     """15f: ``test_wave`` on one card: ``--devices 2`` raises JAX's
     ``requested 2 devices, have 1``, ``--devices 1`` runs (an f32 seed-0
-    checkpoint of the wave recipe on a small ``gen_wave`` corpus)."""
-    data_dir, xp = os.path.join(work, "par_wave"), os.path.join(work, "par_wave_xp")
-    wave_eq.generate_dataset(data_dir, OPS_WAVE_SEQS, OPS_WAVE_SEQ_LEN, seed=WAVE_SEED,
-                             device=dev)
+    checkpoint of the wave recipe on the small corpus in ``data_dir``)."""
+    xp = os.path.join(work, "par_wave_xp")
     cfg = wave_config("wave", data_dir, precision="f32", xp_dir=xp)
     os.makedirs(xp)
     cfg.save(os.path.join(xp, "params.json"))
@@ -3883,99 +3402,73 @@ def eval_cli_devices(dev, work: str) -> dict:
     return {"launches": launches["stream"]}
 
 
-def parallel_phase(dev, work: str, data_dir: str, model, cfg, bf16_ms: float) -> dict:
-    """Phase 15: data and tensor parallelism on one card.  ``model``/``cfg``:
-    phase 3's f32 seed-0 model; ``data_dir``: phase 9's test set.  Returns
-    the kernels' launches on the sharded paths and on the parallel training
-    paths (15a-c)."""
-    t_phase = t = time.perf_counter()
-
-    def sub(label):
-        nonlocal t
-        print(f"phase {label}: {time.perf_counter() - t:.1f} s")
+def parallel_phase(ctx) -> dict:
+    """Phase 15: data and tensor parallelism on one card, in a working
+    directory of its own, on phase 3's f32 seed-0 model, phase 9's test set
+    and ``ctx.small_wave``.  Returns the kernels' launches on the sharded
+    paths and on the parallel training paths (15a-c)."""
+    dev, model, cfg = ctx.dev, ctx.seed0.model, ctx.seed0.cfg
+    data_dir, wave_dir = ctx.test_set, ctx.small_wave
+    with tempfile.TemporaryDirectory(dir=ctx.work) as work:
         t = time.perf_counter()
 
-    train = world_one_nccl(dev, work)
-    sub("15a,c")
-    ranks = two_processes_on_one_card(dev, work, bf16_ms)["launches"]
-    train = {v: train[v] + ranks[v] for v in train}
-    print(f"15a-c: rollout kernel launches {train}: the parallel training paths run the "
-          "integrator module under autograd")
-    check(train == {"cluster": 0, "stream": 0}, "training launched the kernel")
-    sub("15b")
-    test_set = MovingMNIST.make_dataset(data_dir, 64, cfg.nt_cond, cfg.nt_cond + 10, 4, True,
-                                        cfg.n_object, train=False)
-    ev = sharded_eval(dev, model, cfg, test_set)
-    sub("15d")
-    serve = sharded_serving(dev, model, cfg)
-    sub("15e")
-    clis = eval_cli_devices(dev, work)
-    sub("15f")
-    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+        def sub(label):
+            nonlocal t
+            print(f"phase {label}: {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+
+        train = world_one_nccl(dev, work)
+        sub("15a,c")
+        ranks = two_processes_on_one_card(dev, work)
+        train = {v: train[v] + ranks[v] for v in train}
+        print(f"15a-c: rollout kernel launches {train}: the parallel training paths run the "
+              "integrator module under autograd")
+        check(train == {"cluster": 0, "stream": 0}, "training launched the kernel")
+        sub("15b")
+        test_set = MovingMNIST.make_dataset(data_dir, 64, cfg.nt_cond, cfg.nt_cond + 10, 4, True,
+                                            cfg.n_object, train=False)
+        ev = sharded_eval(dev, model, cfg, test_set)
+        sub("15d")
+        serve = sharded_serving(dev, model, cfg)
+        sub("15e")
+        clis = eval_cli_devices(dev, work, wave_dir)
+        sub("15f")
     return {"eval": ev["launches"], "serve": serve["launches"], "test_wave": clis["launches"],
             "train": train}
 
 
-def phase15_only(dev=None) -> None:
-    """Phase 15 alone, a quicker run on the card than the whole script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase15_only()"
-
-    It writes phase 9's synthetic test digits and test set, builds phase 3's
-    f32 seed-0 model, and times phase 7's bf16 step for 15b's comparison."""
-    dev = torch.device("cuda:0") if dev is None else dev
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"nvidia-smi: {nvidia_smi()}")
-    _build.build()
-    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
-    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
-    bf16 = ExperimentConfig(**FLAGSHIP)
-    state = create_train_state(bf16, steps_per_epoch=100, device=dev)
-    seq = par_seq(bf16).to(dev)
-    bf16_ms = time_train_steps(state, make_train_step(state.model, bf16, state.optimizer),
-                               seq[:, :bf16.nt_cond], seq[:, bf16.nt_cond:])
-    del state
-    with tempfile.TemporaryDirectory() as work:
-        data_dir = os.path.join(work, "data")
-        os.makedirs(data_dir)
-        write_idx_images(os.path.join(data_dir, "t10k-images-idx3-ubyte"),
-                         synthetic_digits(N_TEST_DIGITS, seed=1))
-        write_idx_labels(os.path.join(data_dir, "t10k-labels-idx1-ubyte"),
-                         (np.arange(N_TEST_DIGITS) % 10).astype(np.uint8))
-        make_test_set(data_dir, seq_len=TEST_SEQ_LEN, seed=42, digits=2)
-        print(json.dumps(parallel_phase(dev, work, data_dir, model, cfg, bf16_ms)))
-
 # -- phase 16: the measurement programs ------------------------------------------
-# The bench runs at its own depth (5 + 50 steps, and the fused datagen step
-# the same).  The others are cut for time (each runs at full depth as a
-# command of its own): the remat tool's two B 32 rows at 2 + 5 steps
-# (of 3 + 20), the trace tool at 2 + 10 steps (of 5 + 50) with 3 traced,
-# the serving tool at 10 end-to-end calls and 5 back to back (of 30 and 10).
-REMAT_ARGV = ["--rows", "t95_b32", "t95_b32_remat", "--warmup", "2", "--steps", "5"]
-TRACE_ARGV = ["--warmup", "2", "--steps", "10"]
-SERVING_ARGV = ["--iters", "10", "--amortized_k", "5"]
+# Each at the least depth its flags take (each runs at full depth as a command
+# of its own): the bench at 1 + 5 steps (of 5 + 50; 5 steps for its five
+# timing blocks, which 16a checks), the trace tool at 1 + 1 steps (of 5 + 50)
+# with its 3 traced, the remat tool's two B 32 rows at 1 + 1 steps (of 3 +
+# 20), the serving tool at 1 end-to-end call and 1 back to back (of 30 and 10).
+BENCH_ARGV = ["--warmup", "1", "--steps", "5"]
+TRACE_ARGV = ["--warmup", "1", "--steps", "1"]
+REMAT_ARGV = ["--rows", "t95_b32", "t95_b32_remat", "--warmup", "1", "--steps", "1"]
+SERVING_ARGV = ["--iters", "1", "--amortized_k", "1"]
 
 
-def run_main(main, argv: list) -> tuple:
+def run_main(label: str, main, argv: list) -> tuple:
     """A program's ``main(argv)`` in this process, its standard output
-    passed through.  Returns (its output, seconds, the rollout-kernel
-    launches it made by variant)."""
+    passed through, then ``label`` with its seconds and rollout-kernel
+    launches.  Returns (its output, seconds, those launches by variant)."""
     reset_launch_counts()
     t = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         main(argv)
     seconds = time.perf_counter() - t
+    launches = dict(mlp_resnet_rollout.variant_launches)
     print(out.getvalue(), end="")
-    return out.getvalue(), seconds, dict(mlp_resnet_rollout.variant_launches)
+    print(f"{label}: {seconds:.2f} s, rollout kernel launches {launches}")
+    return out.getvalue(), seconds, launches
 
 
 def run_program(label: str, main, argv: list) -> tuple:
     """Phase 16: ``run_main``.  Returns (the program's last line, parsed as
     JSON; its rollout-kernel launches by variant)."""
-    text, seconds, launches = run_main(main, argv)
-    print(f"phase 16 {label}: {seconds:.1f} s, rollout kernel launches {launches}")
+    text, _, launches = run_main(f"phase 16 {label}", main, argv)
     return json.loads(text.strip().splitlines()[-1]), launches
 
 
@@ -3985,72 +3478,60 @@ def positive(line: dict, keys, what: str) -> None:
               f"{what}: {k} is {line[k]}, not a finite positive number")
 
 
-def measurement_programs(dev, work: str) -> dict:
+def measurement_programs(ctx) -> dict:
     """Phase 16: the port's bench and its three tools, each through its
-    ``main``; returns each one's rollout-kernel launches by variant."""
-    t_phase = time.perf_counter()
-    launches = {}
-    line, launches["bench"] = run_program("a, bench", port_bench.main, [])
-    positive(line, ("value", "step_ms", "mfu", "hbm_gb_per_step", "hbm_costmodel_bw_ratio",
-                    "fused_datagen_samples_per_sec_per_chip", "device_busy_ms",
-                    "kernels_per_step", "tflops_per_step"), "bench")
-    check(np.isfinite(line["final_loss"]) and len(line["step_ms_blocks"]) == 5, "bench line")
-    spread = max(line["step_ms_blocks"]) / min(line["step_ms_blocks"]) - 1
-    print(f"  bench: {line['value']:.1f} samples/s, {line['step_ms']:.3f} ms/step (blocks of "
-          f"10: {', '.join(f'{v:.3f}' for v in line['step_ms_blocks'])}; spread {spread:.1%}), "
-          f"mfu {line['mfu']:.4f}, {line['hbm_gb_per_step']:.3f} GB a step, device busy "
-          f"{line['device_busy_ms']:.3f} ms of {line['kernels_per_step']:.0f} kernels")
+    ``main``, in a working directory of its own; returns each one's
+    rollout-kernel launches by variant."""
+    with tempfile.TemporaryDirectory(dir=ctx.work) as work:
+        launches = {}
+        line, launches["bench"] = run_program("a, bench", port_bench.main, BENCH_ARGV)
+        positive(line, ("value", "step_ms", "mfu", "hbm_gb_per_step", "hbm_costmodel_bw_ratio",
+                        "fused_datagen_samples_per_sec_per_chip", "device_busy_ms",
+                        "kernels_per_step", "tflops_per_step"), "bench")
+        check(np.isfinite(line["final_loss"]) and len(line["step_ms_blocks"]) == 5, "bench line")
+        spread = max(line["step_ms_blocks"]) / min(line["step_ms_blocks"]) - 1
+        print(f"  bench: {line['value']:.1f} samples/s, {line['step_ms']:.3f} ms/step (blocks: "
+              f"{', '.join(f'{v:.3f}' for v in line['step_ms_blocks'])}; spread {spread:.1%}), "
+              f"mfu {line['mfu']:.4f}, {line['hbm_gb_per_step']:.3f} GB a step, device busy "
+              f"{line['device_busy_ms']:.3f} ms of {line['kernels_per_step']:.0f} kernels")
 
-    trace_dir = os.path.join(work, "trace")
-    line, launches["trace"] = run_program("b, trace_flagship", trace_flagship.main,
-                                          ["--trace_dir", trace_dir, *TRACE_ARGV])
-    positive(line, ("step_ms", "static_hbm_gb_per_step", "static_bw_utilization", "n_ops",
-                    "trace_busy_ms", "trace_kernels"), "trace_flagship")
-    size = os.path.getsize(os.path.join(trace_dir, "trace.json"))
-    print(f"  trace_flagship: Chrome trace of 3 steps, {size / 1e6:.1f} MB")
+        trace_dir = os.path.join(work, "trace")
+        line, launches["trace"] = run_program("b, trace_flagship", trace_flagship.main,
+                                              ["--trace_dir", trace_dir, *TRACE_ARGV])
+        positive(line, ("step_ms", "static_hbm_gb_per_step", "static_bw_utilization", "n_ops",
+                        "trace_busy_ms", "trace_kernels"), "trace_flagship")
+        size = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+        print(f"  trace_flagship: Chrome trace of 3 steps, {size / 1e6:.1f} MB")
 
-    # cudnn.deterministic: remat recomputes the same kernels, so the two
-    # rows' losses are then bitwise equal.
-    torch.backends.cudnn.deterministic = True
-    try:
-        rows, launches["remat"] = run_program("c, bench_horizon_remat",
-                                              bench_horizon_remat.main, REMAT_ARGV)
-    finally:
-        torch.backends.cudnn.deterministic = False
-    plain, remat = rows["t95_b32"], rows["t95_b32_remat"]
-    check("oom" not in plain and "oom" not in remat, "a B 32 remat row ran out of memory")
-    rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
-    print(f"  remat rows (cudnn.deterministic): loss {plain['loss']!r} without, "
-          f"{remat['loss']!r} with remat, relative {rel:.2e} (bitwise: {rel == 0}; "
-          f"tolerance {TRAIN_LOSS_RTOL:g}); peak {plain['peak_gb']:.2f} against "
-          f"{remat['peak_gb']:.2f} GB")
-    check(rel <= TRAIN_LOSS_RTOL, "the remat rows' losses disagree")
+        # cudnn.deterministic: remat recomputes the same kernels, so the two
+        # rows' losses are then bitwise equal.
+        torch.backends.cudnn.deterministic = True
+        try:
+            rows, launches["remat"] = run_program("c, bench_horizon_remat",
+                                                  bench_horizon_remat.main, REMAT_ARGV)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        plain, remat = rows["t95_b32"], rows["t95_b32_remat"]
+        check("oom" not in plain and "oom" not in remat, "a B 32 remat row ran out of memory")
+        rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+        print(f"  remat rows (cudnn.deterministic): loss {plain['loss']!r} without, "
+              f"{remat['loss']!r} with remat, relative {rel:.2e} (bitwise: {rel == 0}; "
+              f"tolerance {TRAIN_LOSS_RTOL:g}); peak {plain['peak_gb']:.2f} against "
+              f"{remat['peak_gb']:.2f} GB")
+        check(rel <= TRAIN_LOSS_RTOL, "the remat rows' losses disagree")
 
-    line, launches["serving"] = run_program("d, bench_serving_rollout",
-                                            bench_serving_rollout.main, SERVING_ARGV)
-    for v, err in line["kernel_max_step_rel_err"].items():
-        print(f"  serving tool, {v} kernel against the plain rollout: step-relative {err:.3e} "
-              f"(tolerance {ROLLOUT_REL_TOL:g})")
-        check(err <= ROLLOUT_REL_TOL, f"the serving tool's {v} kernel disagrees with plain")
-    check(line["serve_launches"]["bf16"] == {"cluster": 0, "stream": 0}
-          and line["serve_launches"]["f32"]["cluster"] > 0
-          and launches["serving"]["stream"] > 0, "the serving tool's launches")
-    for k in ("bench", "trace", "remat"):
-        check(launches[k] == {"cluster": 0, "stream": 0}, f"{k} launched the rollout kernel")
-    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
-    return launches
-
-
-def phase16_only(dev=None) -> None:
-    """Phase 16 alone, a quicker run on the card than the whole script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase16_only()"
-    """
-    dev = torch.device("cuda:0") if dev is None else dev
-    print(f"nvidia-smi: {nvidia_smi()}")
-    _build.build()
-    with tempfile.TemporaryDirectory() as work:
-        print(json.dumps(measurement_programs(dev, work)))
+        line, launches["serving"] = run_program("d, bench_serving_rollout",
+                                                bench_serving_rollout.main, SERVING_ARGV)
+        for v, err in line["kernel_max_step_rel_err"].items():
+            print(f"  serving tool, {v} kernel against the plain rollout: step-relative {err:.3e} "
+                  f"(tolerance {ROLLOUT_REL_TOL:g})")
+            check(err <= ROLLOUT_REL_TOL, f"the serving tool's {v} kernel disagrees with plain")
+        check(line["serve_launches"]["bf16"] == {"cluster": 0, "stream": 0}
+              and line["serve_launches"]["f32"]["cluster"] > 0
+              and launches["serving"]["stream"] > 0, "the serving tool's launches")
+        for k in ("bench", "trace", "remat"):
+            check(launches[k] == {"cluster": 0, "stream": 0}, f"{k} launched the rollout kernel")
+        return launches
 
 
 # -- phase 17: a migrated reference experiment on the card ----------------------
@@ -4095,156 +3576,138 @@ def same_tensors(a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
-def run_cli(label: str, main, argv: list) -> tuple:
-    """Phase 17: ``run_main``.  Returns (seconds, rollout-kernel launches
-    by variant)."""
-    _, seconds, launches = run_main(main, argv)
-    print(f"  {label}: {seconds:.2f} s, rollout kernel launches {launches}")
-    return seconds, launches
-
-
-def migrated_experiment(dev, work: str, libs: dict) -> dict:
+def migrated_experiment(ctx) -> dict:
     """Phase 17: a reference experiment at the flagship's full width, made
     as a stand-in (17a), imported through ``cli.import_torch`` (17b), served
     on the card through ``Forecaster`` and held against its CPU forecast
     (17c), exported and imported again (17d), with the kernels loaded from
-    the root ``enable_compilation_cache`` resolves (17e).  Returns the
-    cluster kernel's launches while serving it."""
-    t_phase = time.perf_counter()
-    cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
-    seed0 = build_separable_network(cfg, torch.device("cpu"), torch.Generator().manual_seed(0))
-    modules = stand_in_reference(seed0, np.random.default_rng(17))
-    ref = os.path.join(work, "reference_xp")
-    os.makedirs(ref)
-    params = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "precision"}
-    with open(os.path.join(ref, "params.json"), "w") as f:
-        json.dump(params, f)
-    for key, stem in REFERENCE_FILES:
-        torch.save(modules[key], os.path.join(ref, f"{stem}.pt"))
-    ref_mb = sum(os.path.getsize(os.path.join(ref, f"{stem}.pt"))
-                 for _, stem in REFERENCE_FILES) / 1e6
-    print(f"phase 17a: stand-in reference experiment, {cfg.code_size_s}/{cfg.code_size_t} "
-          f"codes, nf {cfg.enc_hidden_size}, MLP-ResNet {cfg.n_blocks} block H "
-          f"{cfg.res_hidden_size}: four pickles of plain torch.nn layers, {ref_mb:.1f} MB, "
-          f"params.json without precision")
+    the root ``enable_compilation_cache`` resolves (17e), in a working
+    directory of its own.  Returns the cluster kernel's launches while
+    serving it."""
+    dev, libs = ctx.dev, ctx.libs
+    with tempfile.TemporaryDirectory(dir=ctx.work) as work:
+        cfg = ExperimentConfig(**{**FLAGSHIP, "precision": "f32"})
+        seed0 = build_separable_network(cfg, torch.device("cpu"), torch.Generator().manual_seed(0))
+        modules = stand_in_reference(seed0, np.random.default_rng(17))
+        ref = os.path.join(work, "reference_xp")
+        os.makedirs(ref)
+        params = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "precision"}
+        with open(os.path.join(ref, "params.json"), "w") as f:
+            json.dump(params, f)
+        for key, stem in REFERENCE_FILES:
+            torch.save(modules[key], os.path.join(ref, f"{stem}.pt"))
+        ref_mb = sum(os.path.getsize(os.path.join(ref, f"{stem}.pt"))
+                     for _, stem in REFERENCE_FILES) / 1e6
+        print(f"phase 17a: stand-in reference experiment, {cfg.code_size_s}/{cfg.code_size_t} "
+              f"codes, nf {cfg.enc_hidden_size}, MLP-ResNet {cfg.n_blocks} block H "
+              f"{cfg.res_hidden_size}: four pickles of plain torch.nn layers, {ref_mb:.1f} MB, "
+              f"params.json without precision")
 
-    # -- 17b. import ----------------------------------------------------------
-    xp = os.path.join(work, "migrated_xp")
-    import_s, launches_import = run_cli("phase 17b, python -m ...cli.import_torch",
-                                        cli_import_torch.main,
-                                        ["--ref_xp_dir", ref, "--xp_dir", xp])
-    check(launches_import == {"cluster": 0, "stream": 0}, "the import launched the rollout kernel")
-    ckpt_mb = os.path.getsize(os.path.join(xp, "checkpoints", "final", "train_state.pt")) / 1e6
-    t = time.perf_counter()
-    cpu_model, cpu_cfg = load_for_eval(xp, device="cpu")
-    cpu_load_s = time.perf_counter() - t
-    check(cpu_cfg.precision == "f32", "the import did not pin f32")
-    for key, _ in REFERENCE_FILES:
-        check(same_tensors(unit_tensors(getattr(cpu_model, key)), unit_tensors(modules[key])),
-              f"imported {key} differs from the stand-in")
-    print(f"phase 17b: imported weights and BatchNorm statistics bitwise the stand-in's; "
-          f"checkpoint {ckpt_mb:.1f} MB, loaded on the CPU in {cpu_load_s:.2f} s")
+        # -- 17b. import ----------------------------------------------------------
+        xp = os.path.join(work, "migrated_xp")
+        _, import_s, launches_import = run_main("  phase 17b, python -m ...cli.import_torch",
+                                                cli_import_torch.main,
+                                                ["--ref_xp_dir", ref, "--xp_dir", xp])
+        check(launches_import == {"cluster": 0, "stream": 0},
+              "the import launched the rollout kernel")
+        ckpt_mb = os.path.getsize(os.path.join(xp, "checkpoints", "final", "train_state.pt")) / 1e6
+        t = time.perf_counter()
+        cpu_model, cpu_cfg = load_for_eval(xp, device="cpu")
+        cpu_load_s = time.perf_counter() - t
+        check(cpu_cfg.precision == "f32", "the import did not pin f32")
+        for key, _ in REFERENCE_FILES:
+            check(same_tensors(unit_tensors(getattr(cpu_model, key)), unit_tensors(modules[key])),
+                  f"imported {key} differs from the stand-in")
+        print(f"phase 17b: imported weights and BatchNorm statistics bitwise the stand-in's; "
+              f"checkpoint {ckpt_mb:.1f} MB, loaded on the CPU in {cpu_load_s:.2f} s")
 
-    # -- 17c. serve it on the card --------------------------------------------
-    t = time.perf_counter()
-    model, _ = load_for_eval(xp, device=dev)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t
-    fc = Forecaster(model, cpu_cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
-    cond = np.random.default_rng(17).random((B, cfg.nt_cond) + cfg.frame_shape,
-                                            dtype=np.float32)
-    reset_launch_counts()
-    answers = {b: fc.predict(cond[:b]) for b in REQUESTS}
-    served = dict(mlp_resnet_rollout.variant_launches)
-    print(f"phase 17c: load_for_eval on the card {load_s:.2f} s; requests of {list(answers)} "
-          f"windows, rollout kernel launches {served}")
-    check(served == {"cluster": len(answers), "stream": 0},
-          "one cluster-kernel launch per request of the migrated experiment")
-    for b, a in answers.items():
-        check(a.shape == (b, N_FORECAST) + cfg.frame_shape and bool(np.isfinite(a).all())
-              and bool(((a >= 0) & (a <= 1)).all()), f"migrated forecast for {b}")
-    n_cpu = MIGRATED_CPU_WINDOWS
-    t = time.perf_counter()
-    cpu_frames = Forecaster(cpu_model, cpu_cfg, n_cpu, N_FORECAST, device="cpu").predict(
-        cond[:n_cpu])
-    cpu_s = time.perf_counter() - t
-    with torch.inference_mode():
-        t_card = model.get_forecast(torch.from_numpy(cond[:n_cpu]).to(dev), N_FORECAST)[1]
-        t_cpu = cpu_model.get_forecast(torch.from_numpy(cond[:n_cpu]), N_FORECAST)[1]
-    rel = step_rel_err(t_card.transpose(0, 1).cpu(), t_cpu.transpose(0, 1))
-    print(f"  T codes, card kernel against the CPU's plain rollout ({n_cpu} windows): "
-          f"step-relative {rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}); the CPU forecast "
-          f"took {cpu_s:.2f} s")
-    check(rel <= ROLLOUT_REL_TOL, "the migrated experiment's T codes disagree card vs CPU")
-    check_frames(answers[B][:n_cpu], cpu_frames,
-                 f"migrated forecast on the card vs its CPU forecast ({n_cpu} windows)")
+        # -- 17c. serve it on the card --------------------------------------------
+        t = time.perf_counter()
+        model, _ = load_for_eval(xp, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        fc = Forecaster(model, cpu_cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
+        cond = np.random.default_rng(17).random((B, cfg.nt_cond) + cfg.frame_shape,
+                                                dtype=np.float32)
+        reset_launch_counts()
+        answers = {b: fc.predict(cond[:b]) for b in REQUESTS}
+        served = dict(mlp_resnet_rollout.variant_launches)
+        print(f"phase 17c: load_for_eval on the card {load_s:.2f} s; requests of {list(answers)} "
+              f"windows, rollout kernel launches {served}")
+        check(served == {"cluster": len(answers), "stream": 0},
+              "one cluster-kernel launch per request of the migrated experiment")
+        for b, a in answers.items():
+            check(a.shape == (b, N_FORECAST) + cfg.frame_shape and bool(np.isfinite(a).all())
+                  and bool(((a >= 0) & (a <= 1)).all()), f"migrated forecast for {b}")
+        n_cpu = MIGRATED_CPU_WINDOWS
+        t = time.perf_counter()
+        cpu_frames = Forecaster(cpu_model, cpu_cfg, n_cpu, N_FORECAST, device="cpu").predict(
+            cond[:n_cpu])
+        cpu_s = time.perf_counter() - t
+        with torch.inference_mode():
+            t_card = model.get_forecast(torch.from_numpy(cond[:n_cpu]).to(dev), N_FORECAST)[1]
+            t_cpu = cpu_model.get_forecast(torch.from_numpy(cond[:n_cpu]), N_FORECAST)[1]
+        rel = step_rel_err(t_card.transpose(0, 1).cpu(), t_cpu.transpose(0, 1))
+        print(f"  T codes, card kernel against the CPU's plain rollout ({n_cpu} windows): "
+              f"step-relative {rel:.3e} (tolerance {ROLLOUT_REL_TOL:g}); the CPU forecast "
+              f"took {cpu_s:.2f} s")
+        check(rel <= ROLLOUT_REL_TOL, "the migrated experiment's T codes disagree card vs CPU")
+        check_frames(answers[B][:n_cpu], cpu_frames,
+                     f"migrated forecast on the card vs its CPU forecast ({n_cpu} windows)")
 
-    # -- 17d. export, and import again ----------------------------------------
-    fresh = stand_in_reference(build_separable_network(
-        cfg, torch.device("cpu"), torch.Generator().manual_seed(1)), np.random.default_rng(18))
-    saved_builder = export_mod.build_reference_modules
-    # The reference's factory is not on the card machine: the stand-in builder
-    # takes its place, with other weights, so nothing of 17a survives in it.
-    export_mod.build_reference_modules = lambda c, reference_root=None: fresh
-    try:
-        out = os.path.join(work, "exported_xp")
-        export_s, launches_export = run_cli("phase 17d, python -m ...cli.export_torch",
-                                            cli_export_torch.main,
-                                            ["--xp_dir", xp, "--ref_xp_dir", out])
-    finally:
-        export_mod.build_reference_modules = saved_builder
-    check(launches_export == {"cluster": 0, "stream": 0},
-          "the export launched the rollout kernel")
-    exported = {key: torch.load(os.path.join(out, f"{stem}.pt"), weights_only=False)
-                for key, stem in REFERENCE_FILES}
-    for key, _ in REFERENCE_FILES:
-        check(not exported[key].training and same_tensors(unit_tensors(exported[key]),
-                                                          unit_tensors(modules[key])),
-              f"exported {key} differs from the stand-in it was imported from")
-    back = os.path.join(work, "reimported_xp")
-    reimport_s, reimport_launches = run_cli("phase 17d, the export through cli.import_torch",
-                                            cli_import_torch.main,
-                                            ["--ref_xp_dir", out, "--xp_dir", back])
-    check(reimport_launches == {"cluster": 0, "stream": 0},
-          "the second import launched the rollout kernel")
-    converters = {v: launches_import[v] + launches_export[v] + reimport_launches[v]
-                  for v in ("cluster", "stream")}
-    again, _ = load_for_eval(back, device="cpu")
-    check(same_tensors(list(again.state_dict().values()), list(cpu_model.state_dict().values())),
-          "export then import is not the identity")
-    print(f"phase 17d: exported {out} and imported it again ({reimport_s:.2f} s): bitwise the "
-          f"first import")
+        # -- 17d. export, and import again ----------------------------------------
+        fresh = stand_in_reference(build_separable_network(
+            cfg, torch.device("cpu"), torch.Generator().manual_seed(1)), np.random.default_rng(18))
+        saved_builder = export_mod.build_reference_modules
+        # The reference's factory is not on the card machine: the stand-in builder
+        # takes its place, with other weights, so nothing of 17a survives in it.
+        export_mod.build_reference_modules = lambda c, reference_root=None: fresh
+        try:
+            out = os.path.join(work, "exported_xp")
+            _, export_s, launches_export = run_main(
+                "  phase 17d, python -m ...cli.export_torch", cli_export_torch.main,
+                ["--xp_dir", xp, "--ref_xp_dir", out])
+        finally:
+            export_mod.build_reference_modules = saved_builder
+        check(launches_export == {"cluster": 0, "stream": 0},
+              "the export launched the rollout kernel")
+        exported = {key: torch.load(os.path.join(out, f"{stem}.pt"), weights_only=False)
+                    for key, stem in REFERENCE_FILES}
+        for key, _ in REFERENCE_FILES:
+            check(not exported[key].training and same_tensors(unit_tensors(exported[key]),
+                                                              unit_tensors(modules[key])),
+                  f"exported {key} differs from the stand-in it was imported from")
+        back = os.path.join(work, "reimported_xp")
+        _, reimport_s, reimport_launches = run_main(
+            "  phase 17d, the export through cli.import_torch", cli_import_torch.main,
+            ["--ref_xp_dir", out, "--xp_dir", back])
+        check(reimport_launches == {"cluster": 0, "stream": 0},
+              "the second import launched the rollout kernel")
+        converters = {v: launches_import[v] + launches_export[v] + reimport_launches[v]
+                      for v in ("cluster", "stream")}
+        again, _ = load_for_eval(back, device="cpu")
+        check(same_tensors(list(again.state_dict().values()),
+                           list(cpu_model.state_dict().values())),
+              "export then import is not the identity")
+        print(f"phase 17d: exported {out} and imported it again ({reimport_s:.2f} s): bitwise the "
+              f"first import")
 
-    # -- 17e. the kernels' build root --------------------------------------------
-    resolved = enable_compilation_cache()
-    root = compile_cache.build_root()
-    loaded = {name: os.path.realpath(lib._name) for name, lib in _build._LOADED.items()}
-    print(f"phase 17e: enable_compilation_cache() -> {resolved}; build root {root}; "
-          f"libraries loaded from {sorted(loaded.values())}")
-    for name, lib in libs.items():
-        check(lib.parent.parent == root and _build.library_path(name) == lib,
-              f"{name}: phase 2 built {lib}, outside the resolved root {root}")
-    check(loaded and all(path == os.path.realpath(libs[name]) for name, path in loaded.items()),
-          "a kernel was loaded from outside phase 2's libraries")
-    print(f"phase 17: import {import_s:.2f} s, export {export_s:.2f} s, load on the card "
-          f"{load_s:.2f} s, checkpoint {ckpt_mb:.1f} MB; {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": served, "converter_launches": converters,
-            "import_s": import_s, "export_s": export_s,
-            "load_s": load_s, "checkpoint_mb": ckpt_mb}
-
-
-def phase17_only(dev=None) -> None:
-    """Phase 17 alone, a quicker run on the card than the whole script::
-
-        python3 -c "import chip_smoke; chip_smoke.phase17_only()"
-    """
-    dev = torch.device("cuda:0") if dev is None else dev
-    print(f"nvidia-smi: {nvidia_smi()}")
-    torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it
-    torch.backends.cuda.matmul.allow_tf32 = False
-    libs = _build.build()
-    with tempfile.TemporaryDirectory() as work:
-        print(json.dumps(migrated_experiment(dev, work, libs)))
+        # -- 17e. the kernels' build root --------------------------------------------
+        resolved = enable_compilation_cache()
+        root = compile_cache.build_root()
+        loaded = {name: os.path.realpath(lib._name) for name, lib in _build._LOADED.items()}
+        print(f"phase 17e: enable_compilation_cache() -> {resolved}; build root {root}; "
+              f"libraries loaded from {sorted(loaded.values())}")
+        for name, lib in libs.items():
+            check(lib.parent.parent == root and _build.library_path(name) == lib,
+                  f"{name}: phase 2 built {lib}, outside the resolved root {root}")
+        check(loaded and all(path == os.path.realpath(libs[name]) for name, path in loaded.items()),
+              "a kernel was loaded from outside phase 2's libraries")
+        print(f"phase 17: import {import_s:.2f} s, export {export_s:.2f} s, load on the card "
+              f"{load_s:.2f} s, checkpoint {ckpt_mb:.1f} MB")
+        return {"launches": served, "converter_launches": converters,
+                "import_s": import_s, "export_s": export_s,
+                "load_s": load_s, "checkpoint_mb": ckpt_mb}
 
 
 # -- phase 19: the decoder's transposed-conv kernel --------------------------------------
@@ -4291,12 +3754,12 @@ def stage_cost(block, x: torch.Tensor) -> tuple:
     return flops, nbytes
 
 
-def decoder_kernel_stages(model, z: torch.Tensor, f64_frames: int, flops_peak: float,
-                          bw_peak: float) -> dict:
+def decoder_kernel_stages(ctx, model, z: torch.Tensor, f64_frames: int) -> dict:
     """Each stage of the seed-0 flagship's decoder on codes z, through the kernel: its
     gap to the f64 plain version on the CPU (first f64_frames frames) and to cuDNN's
     f32 F.conv_transpose2d + BatchNorm + activation on the card, and the times of
-    the kernel, the plain version and that library path beside the stage's bound."""
+    the kernel, the plain version and that library path, in turns, beside the
+    stage's bound."""
     out = {}
     h = z.reshape(z.shape[0], 1, 1, z.shape[-1]).contiguous()
     for name, block, act, nchw in decoder_stages(model):
@@ -4339,15 +3802,16 @@ def decoder_kernel_stages(model, z: torch.Tensor, f64_frames: int, flops_peak: f
         gap_late_lib = float((f64(lib[-f64_frames:]) - late).abs().max()) / late_scale
         flops, nbytes = stage_cost(block, h)
         frame = conv.weight.shape[1] <= 4 and stride == 2
-        peak = flops_peak if frame else TF32_PEAK / 3
-        bound_ms = max(flops / peak, nbytes / bw_peak) * 1e3
-        ms = cuda_ms(run, reps=5, inner=3)
+        peak = ctx.flops_peak if frame else TF32_PEAK / 3
+        bound_ms = max(flops / peak, nbytes / ctx.bw_peak) * 1e3
+        times, _ = in_turns({"kernel": run, "plain": plain, "library": library}, reps=3, inner=2)
+        ms = times["kernel"]
         out[name] = {"shape": list(h.shape), "gap_f64": gap_f64, "gap_cudnn": gap_lib,
                      "gap_f64_last": gap_late, "cudnn_gap_f64_last": gap_late_lib, "ms": ms,
-                     "plain_ms": cuda_ms(plain, reps=3, inner=2),
-                     "library_ms": cuda_ms(library, reps=3, inner=2), "bound_ms": bound_ms,
+                     "plain_ms": times["plain"], "library_ms": times["library"],
+                     "bound_ms": bound_ms,
                      "bound_by": ("f32 FMAs" if frame else "3xTF32")
-                     if flops / peak >= nbytes / bw_peak else "bytes",
+                     if flops / peak >= nbytes / ctx.bw_peak else "bytes",
                      "tflops": flops / ms / 1e9}
         row = out[name]
         print(f"  {name} {tuple(h.shape)} -> {tuple(got.shape)}: against f64 "
@@ -4379,11 +3843,10 @@ def serve_calibration_gaps() -> list:
     return [line["numbers"]["frame_gap"] for line in lines]
 
 
-def decoder_kernel_phase(dev) -> dict:
-    """Phase 19: the DCGAN decoder's transposed convs through ``ops/transposed_conv.py``."""
-    flops_peak, bw_peak = card_peaks(torch.cuda.get_device_name(dev))[:2]
-    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
-    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
+def decoder_kernel_phase(ctx) -> dict:
+    """Phase 19: the DCGAN decoder's transposed convs through ``ops/transposed_conv.py``,
+    on phase 3's seed-0 model."""
+    dev, model, cfg = ctx.dev, ctx.seed0.model, ctx.seed0.cfg
     rng = np.random.default_rng(19)
     cond = rng.random((B, cfg.nt_cond) + cfg.frame_shape, dtype=np.float32)
     cond_dev = torch.from_numpy(cond).to(dev)
@@ -4401,8 +3864,7 @@ def decoder_kernel_phase(dev) -> dict:
             z = torch.cat([z_s, z_t], dim=1).contiguous()
             print(f"decoder stages at the {label} shape ({z.shape[0]} frames):")
             result[label] = decoder_kernel_stages(
-                model, z, min(DECODER_F64_FRAMES, frames) if label == "serving" else frames,
-                flops_peak, bw_peak)
+                ctx, model, z, min(DECODER_F64_FRAMES, frames) if label == "serving" else frames)
             print(f"  kernel {result[label]['total_ms']:.3f} ms over the five stages, cuDNN's "
                   f"library path {result[label]['library_total_ms']:.3f} ms")
     fc = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
@@ -4461,20 +3923,220 @@ def decoder_kernel_phase(dev) -> dict:
     return result
 
 
-def phase19_only(dev=None) -> None:
-    """Phase 19 alone, a quicker run on the card than the whole script::
+def device_phase(ctx) -> None:
+    """Phase 1: the card and the CUDA build of torch; TF32 is off (``main``)."""
+    print(f"nvidia-smi: {ctx.smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {ctx.card}, "
+          f"count {torch.cuda.device_count()}")
+    print(f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-        python3 -c "import chip_smoke; chip_smoke.phase19_only()"
-    """
-    dev = torch.device("cuda:0") if dev is None else dev
-    print(f"nvidia-smi: {nvidia_smi()}")
-    torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build()
+
+def build_kernels(ctx) -> dict:
+    """The product ``ctx.libs``: every ``csrc/*.cu`` built with nvcc.
+    Returns name -> library."""
     t = time.perf_counter()
-    result = decoder_kernel_phase(dev)
-    print(f"phase 19: {time.perf_counter() - t:.1f} s")
-    print(json.dumps(result))
+    libs = _build.build()
+    print(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t:.1f} s")
+    return libs
+
+
+def build_phase(ctx) -> None:
+    """Phase 2: the build, with ptxas's report and whether it shows register
+    spills."""
+    for name, lib in ctx.libs.items():
+        log = (lib.parent / "build.log").read_text().strip()
+        print(f"  {name}: {lib}\n    " + log.replace("\n", "\n    "))
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        print(f"  {name}: ptxas reports " + ("no register spills" if not spills else
+                                             "register spills: " + "; ".join(spills)))
+
+
+def seed0_model(ctx) -> types.SimpleNamespace:
+    """The product ``ctx.seed0``: the full-width f32 flagship model built
+    from seed 0 (``model``, ``cfg``), in eval mode, and its window: B 64
+    windows drawn from seed 0 (``cond``, on the card ``cond_dev``), their
+    T code ``t0`` and the integrator's ``params``."""
+    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
+    model = build_separable_network(cfg, ctx.dev, torch.Generator().manual_seed(0)).eval()
+    cond = np.random.default_rng(0).random((B, cfg.nt_cond) + cfg.frame_shape, dtype=np.float32)
+    cond_dev = torch.from_numpy(cond).to(ctx.dev)
+    with torch.inference_mode():
+        t0 = model.encode_t(cond_dev).contiguous()
+    return types.SimpleNamespace(model=model, cfg=cfg, cond=cond, cond_dev=cond_dev, t0=t0,
+                                 params=model.t_resnet.flat_params())
+
+
+def four_block_model(ctx) -> types.SimpleNamespace:
+    """The product ``ctx.four_blocks``: the seed-0 flagship with a 4-block
+    integrator (``model``, ``cfg``), which no resident cluster holds."""
+    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32", n_blocks=4)
+    model = build_separable_network(cfg, ctx.dev, torch.Generator().manual_seed(0)).eval()
+    return types.SimpleNamespace(model=model, cfg=cfg)
+
+
+def kernel_cases(ctx) -> dict:
+    """The product ``ctx.kernel_cases``: phase 3's cases, label -> (t0,
+    params, n_steps, the plan's (variant, cluster or None[, resident]))."""
+    dev, seed0 = ctx.dev, ctx.seed0
+    gen = torch.Generator().manual_seed(1)
+    ragged = MLPResnet(20, 2, 512, generator=gen).to(dev)
+    cases = {
+        "serving B64 code20 H512 1 block 100 steps": (
+            seed0.t0, seed0.params, N_FORECAST, ("cluster", 8)),
+        "ragged B13 code20 H512 2 blocks 100 steps": (
+            torch.randn(13, 20, generator=gen).to(dev), ragged.flat_params(), N_FORECAST,
+            ("cluster", 16)),
+        "ragged slice B13 code20 H516 1 block 100 steps": (
+            torch.randn(13, 20, generator=gen).to(dev),
+            MLPResnet(20, 1, 516, generator=gen).to(dev).flat_params(), N_FORECAST,
+            ("cluster", 8)),
+        "4 blocks B64 code20 H512 100 steps": (
+            torch.randn(B, 20, generator=gen).to(dev),
+            MLPResnet(20, 4, 512, generator=gen).to(dev).flat_params(), N_FORECAST,
+            ("stream", None)),
+    }
+    # The WaveEq eval's rollout (a random 3-block integrator; 10f runs the
+    # model's own), a ragged batch of it, and the kernels' 16-block limit,
+    # 30 steps: at random init 16 blocks a step reach ~1e19 by then.
+    wave_params = MLPResnet(32, 3, 512, generator=gen).to(dev).flat_params()
+    cases.update({
+        "wave B256 code32 H512 3 blocks 45 steps": (
+            torch.randn(WAVE_EVAL_B, 32, generator=gen).to(dev), wave_params,
+            WAVE_ROLLOUT_STEPS, ("stream", None)),
+        "ragged wave B250 code32 H512 3 blocks 45 steps": (
+            torch.randn(250, 32, generator=gen).to(dev), wave_params, WAVE_ROLLOUT_STEPS,
+            ("stream", None)),
+        "16 blocks B64 code20 H256 30 steps": (
+            torch.randn(B, 20, generator=gen).to(dev),
+            MLPResnet(20, 16, 256, generator=gen).to(dev).flat_params(), 30,
+            ("stream", None)),
+        # No cluster holds these blocks' W1 and W3 slices beside the ring: the
+        # streaming kernel reads them from L2.
+        "8 blocks B64 code64 H512 30 steps": (
+            torch.randn(B, 64, generator=gen).to(dev),
+            MLPResnet(64, 8, 512, generator=gen).to(dev).flat_params(), 30,
+            ("stream", None, False)),
+        "8 blocks B50 code20 H2048 20 steps": (
+            torch.randn(50, 20, generator=gen).to(dev),
+            MLPResnet(20, 8, 2048, generator=gen).to(dev).flat_params(), 20,
+            ("stream", None, False)),
+    })
+    cases.update(chairs_kernel_cases(dev))
+    return cases
+
+
+def kernel_cases_phase(ctx) -> dict:
+    """Phase 3: ``ctx.kernel_cases`` through the kernels against plain.
+    Returns {(label, variant): (step-relative, abs)}."""
+    errors = check_kernel_cases(ctx.kernel_cases)
+    check({v for _, v in errors} == {"cluster", "stream"}, "both variants checked")
+    return errors
+
+
+def serving_phase(ctx) -> dict:
+    """Phase 4: serving, the main path through the cluster kernel (a) and a
+    4-block integrator through the streaming kernel (b).  Returns each
+    kernel's launches on its path."""
+    seed0, cfg, cond = ctx.seed0, ctx.seed0.cfg, ctx.seed0.cond
+    fc = Forecaster(seed0.model, cfg, batch_size=B, n_forecast=N_FORECAST, device=ctx.dev)
+    reset_launch_counts()
+    answers = {b: fc.predict(cond[:b]) for b in REQUESTS}
+    launches = dict(mlp_resnet_rollout.variant_launches)
+    print(f"serving: requests of {list(answers)} windows, rollout kernel launches {launches}")
+    check(launches == {"cluster": len(answers), "stream": 0},
+          "one cluster-kernel launch per request")
+    for b, a in answers.items():
+        check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"forecast shape for {b}")
+        check(bool(np.isfinite(a).all()), f"non-finite forecast for {b}")
+        check(bool(((a >= 0) & (a <= 1)).all()), f"sigmoid forecast outside [0, 1] for {b}")
+        # Padded rows are held to the frame tolerance here and to bitwise
+        # identity below with cudnn.deterministic (the f32 decoder runs the
+        # port's own kernel, which uses no atomics; phase 19 holds it bitwise
+        # with cuDNN's default algorithms too).
+        check_frames(a, answers[B][:b], f"padded {b}-window answer vs the {B}-window rows")
+    torch.backends.cudnn.deterministic = True
+    exact = {b: fc.predict(cond[:b]) for b in REQUESTS[:2]}
+    torch.backends.cudnn.deterministic = False
+    small = REQUESTS[1]
+    identical = np.array_equal(exact[small], exact[B][:small])
+    print(f"with cudnn.deterministic: {small}-window answer bitwise equal to the "
+          f"{B}-window rows: {identical}")
+    check(identical, "padded rows differ with deterministic algorithms")
+    model = seed0.model
+    with torch.inference_mode():
+        t_codes_kernel = model.get_forecast(seed0.cond_dev, N_FORECAST)[1].transpose(0, 1)
+        t_codes_plain = mlp_resnet_rollout_reference(seed0.t0, seed0.params, N_FORECAST)
+        frames_plain = model._decode_all(model.encode_s(seed0.cond_dev), None, t_codes_plain)
+    rel = step_rel_err(t_codes_kernel, t_codes_plain)
+    print(f"serving T codes vs plain rollout: step-relative {rel:.3e} "
+          f"(tolerance {ROLLOUT_REL_TOL:g})")
+    check(rel <= ROLLOUT_REL_TOL, "serving T codes disagree with the plain rollout")
+    check_frames(answers[B], frames_plain.cpu().numpy(),
+                 "forecast vs the plain-rollout forecast")
+
+    # b. a 4-block integrator: the streaming kernel
+    model4, cfg4 = ctx.four_blocks.model, ctx.four_blocks.cfg
+    fc4 = Forecaster(model4, cfg4, batch_size=B, n_forecast=N_FORECAST, device=ctx.dev)
+    reset_launch_counts()
+    answers4 = {b: fc4.predict(cond[:b]) for b in REQUESTS}
+    launches4 = dict(mlp_resnet_rollout.variant_launches)
+    print(f"serving, 4-block integrator: requests of {list(answers4)} windows, rollout "
+          f"kernel launches {launches4}")
+    check(launches4 == {"cluster": 0, "stream": len(answers4)},
+          "one streaming-kernel launch per 4-block request")
+    for b, a in answers4.items():
+        check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"4-block forecast shape for {b}")
+        check(bool(np.isfinite(a).all()), f"non-finite 4-block forecast for {b}")
+        check(bool(((a >= 0) & (a <= 1)).all()), f"4-block forecast outside [0, 1] for {b}")
+    with torch.inference_mode():
+        t_codes4 = model4.get_forecast(seed0.cond_dev, N_FORECAST)[1].transpose(0, 1)
+        t_codes4_plain = mlp_resnet_rollout_reference(
+            model4.encode_t(seed0.cond_dev).contiguous(), model4.t_resnet.flat_params(),
+            N_FORECAST)
+    rel = step_rel_err(t_codes4, t_codes4_plain)
+    print(f"4-block serving T codes vs plain rollout: step-relative {rel:.3e} "
+          f"(tolerance {ROLLOUT_REL_TOL:g})")
+    check(rel <= ROLLOUT_REL_TOL, "4-block serving T codes disagree with the plain rollout")
+    return {"cluster": launches["cluster"], "stream": launches4["stream"]}
+
+
+def kernel_timing_phase(ctx) -> dict:
+    """Phase 5: the rollout kernels timed at the serving shapes, the
+    streaming kernel at the 4-block serving shape and with W1, the biases
+    and W3 from L2 (phase 3's 8-block case)."""
+    seed0 = ctx.seed0
+    code, hidden = seed0.t0.shape[1], seed0.params[0].shape[1]
+    print(f"timing on {ctx.smi} (TF32 off); both kernels at the serving shapes, and the "
+          f"cluster kernel at 4 rows a cluster:")
+    serving = rollout_turns(ctx, seed0.t0, seed0.params, N_FORECAST, {
+        "cluster": card_plan(B, code, hidden, 1),
+        "stream": card_plan(B, code, hidden, 1, variant="stream"),
+        "cluster at 4 rows": card_plan(B, code, hidden, 1, rows=4)})
+    ms, rows4 = serving["ms"], serving["plans"]["cluster at 4 rows"]
+    rows4_active = cluster_library().mlp_resnet_rollout_cluster_max_active(
+        B, code, hidden, 1, rows4.cluster, rows4.rows)
+    print(f"  the cluster kernel is {ms['stream'] / ms['cluster']:.2f}x as fast as the streaming "
+          f"kernel; at 4 rows a cluster it needs {-(-B // rows4.rows)} clusters, at most "
+          f"{rows4_active} at once, and takes {ms['cluster at 4 rows'] / ms['cluster']:.2f}x "
+          f"its time at 8")
+    model4 = ctx.four_blocks.model
+    with torch.inference_mode():
+        t0_4 = model4.encode_t(seed0.cond_dev).contiguous()
+    params4 = model4.t_resnet.flat_params()
+    t0_l2, params_l2, n_l2, _ = ctx.kernel_cases["8 blocks B64 code64 H512 30 steps"]
+    plans = {"4-block serving": card_plan(B, code, hidden, 4),
+             "8 blocks from L2": card_plan(B, t0_l2.shape[1], params_l2[0].shape[1], 8)}
+    for label, plan in plans.items():
+        check(plan.variant == "stream", f"the {label} plan {plan} is not the streaming kernel")
+    print("the streaming kernel at the 4-block serving shape:")
+    serving4 = rollout_turns(ctx, t0_4, params4, N_FORECAST,
+                             {"stream": plans["4-block serving"]}, reps=3, inner=2)
+    print("the streaming kernel with W1, the biases and W3 from L2:")
+    from_l2 = rollout_turns(ctx, t0_l2, params_l2, n_l2, {"stream": plans["8 blocks from L2"]},
+                            reps=3, inner=2)
+    return {"serving": serving, "serving4": serving4, "from_l2": from_l2}
 
 
 def check_kernel_cases(cases: dict) -> dict:
@@ -4529,310 +4191,137 @@ def check_kernel_cases(cases: dict) -> dict:
     return errors
 
 
-def main() -> None:
-    # -- 1. device -----------------------------------------------------
-    t_main = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        sys.exit(1)
-    dev = torch.device("cuda:0")
-    t_phase = time.perf_counter()
+# Each product a later phase reads: the one function that builds it.
+PRODUCTS = {
+    "libs": build_kernels,           # phase 2; 17 reads it
+    "seed0": seed0_model,            # phase 3; 4, 5, 9, 15, 19
+    "kernel_cases": kernel_cases,    # phase 3; 5
+    "four_blocks": four_block_model,  # phase 4; 5
+    "digits": write_digits,          # phase 8; 8b, 9, 14
+    "checkpoint": train_cli,         # phase 8b; 8, 9, 14
+    "test_set": write_test_set,      # phase 9; 9c, 15
+    "eval_archive": eval_clis,       # phase 9c; 9, 14
+    "small_wave": write_small_wave,  # phase 14a; 15f
+    "corpora": taxibj_and_sst,       # phases 12-13; 18
+}
 
-    seconds = {}
 
-    def phase_done(label, quiet: bool = False) -> None:
-        """Record (and print, unless the phase printed it) its seconds."""
-        nonlocal t_phase
-        seconds[label] = round(time.perf_counter() - t_phase, 1)
-        if not quiet:
+class Context:
+    """What the phases share: the card, its peaks, one working directory,
+    and the products of ``PRODUCTS`` as attributes, each built at its first
+    use and then kept."""
+
+    def __init__(self, dev: torch.device, work: str):
+        self.dev, self.work = dev, work
+        self.smi = nvidia_smi()
+        self.card = torch.cuda.get_device_name(dev)
+        self.flops_peak, self.bw_peak = card_peaks(self.card)[:2]
+
+    def __getattr__(self, name: str):
+        if name not in PRODUCTS:
+            raise AttributeError(name)
+        product = PRODUCTS[name](self)
+        setattr(self, name, product)
+        return product
+
+
+# The phases in the order a whole run takes them: (label, function of the context).
+PHASES = [
+    ("1", device_phase),
+    ("2", build_phase),
+    ("3", kernel_cases_phase),
+    ("4", serving_phase),
+    ("5", kernel_timing_phase),
+    ("6", lambda ctx: train_step_card_vs_cpu(ctx.dev)),
+    ("7", flagship_train),
+    ("8", train_entry_point),
+    ("9", evaluation),
+    ("10", wave_phase),
+    ("11", chairs_phase),
+    ("12-13", lambda ctx: ctx.corpora),
+    ("14", ops_phase),
+    ("15", parallel_phase),
+    ("16", measurement_programs),
+    ("17", migrated_experiment),
+    ("18", hdf5_phase),
+    ("19", decoder_kernel_phase),
+]
+
+
+def selected_phases(args: list) -> list:
+    """The labels ``args`` names, every phase's if none; an unknown label
+    exits nonzero with the list of labels."""
+    labels = [label for label, _ in PHASES]
+    unknown = [a for a in args if a not in labels]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase {' '.join(unknown)}; the phases are "
+                         + " ".join(labels))
+    return list(args) or labels
+
+
+def run_phases(labels: list, ctx: Context) -> tuple:
+    """Each phase of ``labels``, in the order of ``PHASES``.  Returns
+    ({label: its result}, {label: its seconds})."""
+    results, seconds = {}, {}
+    for label, phase in PHASES:
+        if label in labels:
+            t = time.perf_counter()
+            results[label] = phase(ctx)
+            seconds[label] = round(time.perf_counter() - t, 1)
             print(f"phase {label}: {seconds[label]:.1f} s")
-        t_phase = time.perf_counter()
+    return results, seconds
 
-    smi = nvidia_smi()
-    card = torch.cuda.get_device_name(0)
-    print(f"nvidia-smi: {smi}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {card}, "
-          f"count {torch.cuda.device_count()}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    flops_peak, bw_peak = card_peaks(card)[:2]
-    phase_done(1)
 
-    # -- 2. build ------------------------------------------------------
-    t = time.perf_counter()
-    libs = _build.build()
-    print(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t:.1f} s")
-    for name, lib in libs.items():
-        log = (lib.parent / "build.log").read_text().strip()
-        print(f"  {name}: {lib}\n    " + log.replace("\n", "\n    "))
-        spills = [line.strip() for line in log.splitlines()
-                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-        print(f"  {name}: ptxas reports " + ("no register spills" if not spills else
-                                             "register spills: " + "; ".join(spills)))
-    phase_done(2)
-
-    # -- 3. kernel against plain ---------------------------------------
-    cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32")
-    model = build_separable_network(cfg, dev, torch.Generator().manual_seed(0)).eval()
-    rng = np.random.default_rng(0)
-    cond = rng.random((B, cfg.nt_cond) + cfg.frame_shape, dtype=np.float32)
-    cond_dev = torch.from_numpy(cond).to(dev)
-    with torch.inference_mode():
-        t0_main = model.encode_t(cond_dev).contiguous()
-    params_main = model.t_resnet.flat_params()
-    gen = torch.Generator().manual_seed(1)
-    ragged = MLPResnet(20, 2, 512, generator=gen).to(dev)
-    # label: (t0, params, n_steps, the plan's (variant, cluster or None[, resident]))
-    cases = {
-        "serving B64 code20 H512 1 block 100 steps": (
-            t0_main, params_main, N_FORECAST, ("cluster", 8)),
-        "ragged B13 code20 H512 2 blocks 100 steps": (
-            torch.randn(13, 20, generator=gen).to(dev), ragged.flat_params(), N_FORECAST,
-            ("cluster", 16)),
-        "ragged slice B13 code20 H516 1 block 100 steps": (
-            torch.randn(13, 20, generator=gen).to(dev),
-            MLPResnet(20, 1, 516, generator=gen).to(dev).flat_params(), N_FORECAST,
-            ("cluster", 8)),
-        "4 blocks B64 code20 H512 100 steps": (
-            torch.randn(B, 20, generator=gen).to(dev),
-            MLPResnet(20, 4, 512, generator=gen).to(dev).flat_params(), N_FORECAST,
-            ("stream", None)),
-    }
-    # The WaveEq eval's rollout (a random 3-block integrator; 10f runs the
-    # model's own), a ragged batch of it, and the kernels' 16-block limit,
-    # 30 steps: at random init 16 blocks a step reach ~1e19 by then.
-    wave_params = MLPResnet(32, 3, 512, generator=gen).to(dev).flat_params()
-    cases.update({
-        "wave B256 code32 H512 3 blocks 45 steps": (
-            torch.randn(WAVE_EVAL_B, 32, generator=gen).to(dev), wave_params,
-            WAVE_ROLLOUT_STEPS, ("stream", None)),
-        "ragged wave B250 code32 H512 3 blocks 45 steps": (
-            torch.randn(250, 32, generator=gen).to(dev), wave_params, WAVE_ROLLOUT_STEPS,
-            ("stream", None)),
-        "16 blocks B64 code20 H256 30 steps": (
-            torch.randn(B, 20, generator=gen).to(dev),
-            MLPResnet(20, 16, 256, generator=gen).to(dev).flat_params(), 30,
-            ("stream", None)),
-        # No cluster holds these blocks' W1 and W3 slices beside the ring: the
-        # streaming kernel reads them from L2.
-        "8 blocks B64 code64 H512 30 steps": (
-            torch.randn(B, 64, generator=gen).to(dev),
-            MLPResnet(64, 8, 512, generator=gen).to(dev).flat_params(), 30,
-            ("stream", None, False)),
-        "8 blocks B50 code20 H2048 20 steps": (
-            torch.randn(50, 20, generator=gen).to(dev),
-            MLPResnet(20, 8, 2048, generator=gen).to(dev).flat_params(), 20,
-            ("stream", None, False)),
-    })
-    cases.update(chairs_kernel_cases(dev))
-    errors = check_kernel_cases(cases)
-    check({v for _, v in errors} == {"cluster", "stream"}, "both variants checked")
-    phase_done(3)
-
-    # -- 4a. serving: the main path ------------------------------------
-    fc = Forecaster(model, cfg, batch_size=B, n_forecast=N_FORECAST, device=dev)
-    reset_launch_counts()
-    answers = {b: fc.predict(cond[:b]) for b in REQUESTS}
-    launches = dict(mlp_resnet_rollout.variant_launches)
-    print(f"serving: requests of {list(answers)} windows, rollout kernel launches {launches}")
-    check(launches == {"cluster": len(answers), "stream": 0},
-          "one cluster-kernel launch per request")
-    for b, a in answers.items():
-        check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"forecast shape for {b}")
-        check(bool(np.isfinite(a).all()), f"non-finite forecast for {b}")
-        check(bool(((a >= 0) & (a <= 1)).all()), f"sigmoid forecast outside [0, 1] for {b}")
-        # Padded rows are held to the frame tolerance here and to bitwise
-        # identity below with cudnn.deterministic (the f32 decoder runs the
-        # port's own kernel, which uses no atomics; phase 19 holds it bitwise
-        # with cuDNN's default algorithms too).
-        check_frames(a, answers[B][:b], f"padded {b}-window answer vs the {B}-window rows")
-    torch.backends.cudnn.deterministic = True
-    exact = {b: fc.predict(cond[:b]) for b in REQUESTS[:2]}
-    torch.backends.cudnn.deterministic = False
-    small = REQUESTS[1]
-    identical = np.array_equal(exact[small], exact[B][:small])
-    print(f"with cudnn.deterministic: {small}-window answer bitwise equal to the "
-          f"{B}-window rows: {identical}")
-    check(identical, "padded rows differ with deterministic algorithms")
-    with torch.inference_mode():
-        t_codes_kernel = model.get_forecast(cond_dev, N_FORECAST)[1].transpose(0, 1)
-        t_codes_plain = mlp_resnet_rollout_reference(t0_main, params_main, N_FORECAST)
-        frames_plain = model._decode_all(model.encode_s(cond_dev), None, t_codes_plain)
-    rel = step_rel_err(t_codes_kernel, t_codes_plain)
-    print(f"serving T codes vs plain rollout: step-relative {rel:.3e} "
-          f"(tolerance {ROLLOUT_REL_TOL:g})")
-    check(rel <= ROLLOUT_REL_TOL, "serving T codes disagree with the plain rollout")
-    check_frames(answers[B], frames_plain.cpu().numpy(),
-                 "forecast vs the plain-rollout forecast")
-
-    # -- 4b. serving with a 4-block integrator: the streaming kernel -----
-    cfg4 = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32", n_blocks=4)
-    model4 = build_separable_network(cfg4, dev, torch.Generator().manual_seed(0)).eval()
-    fc4 = Forecaster(model4, cfg4, batch_size=B, n_forecast=N_FORECAST, device=dev)
-    reset_launch_counts()
-    answers4 = {b: fc4.predict(cond[:b]) for b in REQUESTS}
-    launches4 = dict(mlp_resnet_rollout.variant_launches)
-    print(f"serving, 4-block integrator: requests of {list(answers4)} windows, rollout "
-          f"kernel launches {launches4}")
-    check(launches4 == {"cluster": 0, "stream": len(answers4)},
-          "one streaming-kernel launch per 4-block request")
-    for b, a in answers4.items():
-        check(a.shape == (b, N_FORECAST) + cfg.frame_shape, f"4-block forecast shape for {b}")
-        check(bool(np.isfinite(a).all()), f"non-finite 4-block forecast for {b}")
-        check(bool(((a >= 0) & (a <= 1)).all()), f"4-block forecast outside [0, 1] for {b}")
-    with torch.inference_mode():
-        t_codes4 = model4.get_forecast(cond_dev, N_FORECAST)[1].transpose(0, 1)
-        t_codes4_plain = mlp_resnet_rollout_reference(
-            model4.encode_t(cond_dev).contiguous(), model4.t_resnet.flat_params(), N_FORECAST)
-    rel = step_rel_err(t_codes4, t_codes4_plain)
-    print(f"4-block serving T codes vs plain rollout: step-relative {rel:.3e} "
-          f"(tolerance {ROLLOUT_REL_TOL:g})")
-    check(rel <= ROLLOUT_REL_TOL, "4-block serving T codes disagree with the plain rollout")
-    phase_done(4)
-
-    # -- 5. timing -----------------------------------------------------
-    print(f"timing on {smi} (TF32 off)")
-    stats = fc.benchmark(n_iters=30, warmup=3)
-    print(f"  Forecaster B{B} x {N_FORECAST}: p50 {stats['p50_ms']:.3f} ms, p99 "
-          f"{stats['p99_ms']:.3f} ms, mean {stats['mean_ms']:.3f} ms, "
-          f"{stats['frames_per_sec']:.1f} frames/s")
-    profile_layers(model, cond_dev, N_FORECAST)
-    code, hidden = t0_main.shape[1], params_main[0].shape[1]
-    n_blocks = len(params_main) // 6
-    out, h1, h2, res = (torch.empty(N_FORECAST, B, code, device=dev),
-                        torch.empty(B, hidden, device=dev), torch.empty(B, hidden, device=dev),
-                        torch.empty(B, code, device=dev))
-    lib_out = addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res)
-    check(step_rel_err(lib_out, t_codes_plain) <= ROLLOUT_REL_TOL, "addmm loop disagrees")
-    plans = {"cluster": card_plan(B, code, hidden, n_blocks),
-             "stream": card_plan(B, code, hidden, n_blocks, variant="stream")}
-    runs = {v: [] for v in plans}
-    for v in ("stream", "cluster", "cluster", "stream"):
-        runs[v].append(cuda_ms(
-            lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST, plan=plans[v])))
-    ms = {v: float(np.mean(t)) for v, t in runs.items()}
-    rows4 = card_plan(B, code, hidden, n_blocks, rows=4)
-    rows4_ms = cuda_ms(lambda: mlp_resnet_rollout(t0_main, params_main, N_FORECAST, plan=rows4))
-    rows4_active = cluster_library().mlp_resnet_rollout_cluster_max_active(
-        B, code, hidden, n_blocks, rows4.cluster, rows4.rows)
-    plain_ms = cuda_ms(lambda: mlp_resnet_rollout_reference(t0_main, params_main, N_FORECAST))
-    addmm_ms = cuda_ms(lambda: addmm_loop(t0_main, params_main, N_FORECAST, out, h1, h2, res))
-    ops, nbytes = rollout_cost(B, code, hidden, n_blocks, N_FORECAST)
-    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    for v, plan in plans.items():
-        print(f"  {v} kernel {plan}: {ms[v]:.4f} ms (mean of two medians of CUDA-event "
-              f"timings, {runs[v][0]:.4f} and {runs[v][1]:.4f}), "
-              f"{ms[v] / (N_FORECAST - 1) * 1e3:.3f} us a step; {bound_ms / ms[v]:.1%} of "
-              f"the bound")
-    print(f"  the cluster kernel is {ms['stream'] / ms['cluster']:.2f}x as fast as the "
-          f"streaming kernel")
-    print(f"  cluster kernel at 4 rows a cluster {rows4}: {rows4_ms:.4f} ms "
-          f"({-(-B // rows4.rows)} clusters, at most {rows4_active} at once)")
-    print(f"  plain loop (mlp_resnet_rollout_reference): {plain_ms:.4f} ms")
-    print(f"  eager torch.addmm loop into preallocated buffers (not one call; no single "
-          f"PyTorch call computes this function, so library_ms is null): {addmm_ms:.4f} ms")
-    print(f"  bound: {ops / 1e9:.3f} GFLOP at {flops_peak / 1e12:.1f} TFLOP/s f32 = "
-          f"{t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s = "
-          f"{t_bytes:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
-    with torch.inference_mode():
-        t0_4 = model4.encode_t(cond_dev).contiguous()
-    serving4 = stream_turns(t0_4, model4.t_resnet.flat_params(), N_FORECAST, flops_peak,
-                            bw_peak, reps=3, inner=2)
-    # W1, the biases and W3 from L2: phase 3's 8-block case.
-    t0_l2, params_l2, n_l2, _ = cases["8 blocks B64 code64 H512 30 steps"]
-    from_l2 = stream_turns(t0_l2, params_l2, n_l2, flops_peak, bw_peak, reps=3, inner=2)
-    phase_done(5)
-
-    # -- 6. the train step, card against CPU -------------------------------
-    train_step_card_vs_cpu(dev)
-    phase_done(6)
-
-    # -- 7. the flagship train step ------------------------------------------
-    bf16_ms = flagship_train(dev, smi, card)
-    phase_done(7)
-
-    # -- 8. the train entry point, and 9. evaluation, in one working dir that
-    # phase 14 reads too (phase 8's digits and bf16 checkpoint, 9's archive)
-    work89 = tempfile.TemporaryDirectory()
-    served, xp, data_dir = train_entry_point(dev, bf16_ms, work89.name)
-    print(f"rollout kernel launches on the from_xp_dir request: {served}")
-    phase_done(8)
-    evals = evaluation(dev, smi, model, cfg, xp, data_dir, work89.name)
-    b16 = evals["b16"]
-    eval_ms = eval_kernel_timing(b16["t0"], b16["params"], flops_peak, bw_peak)
-    phase_done(9)
-
-    # -- 10. WaveEq and WaveEq-100 ---------------------------------------------
-    with tempfile.TemporaryDirectory() as work:
-        wave = wave_phase(dev, work, flops_peak, bw_peak)
-    phase_done(10, quiet=True)
-    wave_keys = {"wave_shapes": wave["shapes"], "wave_plan": wave["plan"]._asdict(),
+def kernels_line(r: dict) -> dict:
+    """The line with one entry per kernel, from every phase's result
+    (``r[label]``)."""
+    errors, launched, timed, evals = r["3"], r["4"], r["5"], r["9"]
+    wave, chairs = r["10"]["turns"], r["11"]["turns"]
+    taxibj, sst = r["12-13"]["taxibj"], r["12-13"]["sst"]
+    ops, par, programs, migrated, files, decoder = (r["14"], r["15"], r["16"], r["17"], r["18"],
+                                                    r["19"])
+    serving, serving4, from_l2, eval_b16 = (timed["serving"], timed["serving4"],
+                                            timed["from_l2"], evals["turns"])
+    chairs_labels = [label for label, _ in errors if label.startswith("chairs")]
+    serving_case = "serving B64 code20 H512 1 block 100 steps"
+    sources = {"cluster": "mlp_resnet_rollout_cluster.cu", "stream": "mlp_resnet_rollout.cu"}
+    paths = {"cluster": "serving, 1-block integrator", "stream": "serving, 4-block integrator"}
+    eval_launches = {v: {"Evaluator.score, f32 seed 0, B 16 (9b)":
+                         evals["b16"]["launches"] if v == "cluster" else 0,
+                         **{f"{k} evaluate(model_bundle=f32 seed 0) (9c)": n[v]
+                            for k, n in evals["bundle"].items()},
+                         "eval CLIs on the bf16 checkpoint (9c)": 0}
+                     for v in ("cluster", "stream")}
+    wave_keys = {"wave_shapes": wave["shapes"], "wave_plan": wave["plans"]["stream"]._asdict(),
                  "wave_ms": wave["ms"]["stream"], "wave_plain_ms": wave["ms"]["plain"],
                  "wave_addmm_loop_ms": wave["ms"]["addmm"], "wave_bound_ms": wave["bound_ms"],
-                 "wave_bound_by": wave["bound_by"], "wave_max_step_rel_err": wave["rel"],
-                 "wave_max_abs_err": wave["abs"], "wave_block_step_us": wave["block_step_us"]}
-
-    # -- 11. 3D Chairs (11a ran with phase 3's cases) ---------------------------
-    with tempfile.TemporaryDirectory() as work:
-        chairs = chairs_phase(dev, work, flops_peak, bw_peak)
-    phase_done(11, quiet=True)
-    chairs_labels = [label for label in cases if label.startswith("chairs")]
-
-    # -- 12. TaxiBJ and 13. SST, then 18. both from their HDF5 files on 12-13's
-    # experiments (each prints its own seconds) -----------------------------------
-    with tempfile.TemporaryDirectory() as work:
-        taxibj = taxibj_phase(dev, work, flops_peak, bw_peak)
-        sst = sst_phase(dev, work)
-        phase_done("12-13", quiet=True)
-        files = hdf5_phase(dev, work, taxibj, sst)
-        phase_done(18, quiet=True)
-    del taxibj["splits"], sst["splits"]
-    taxibj_keys = {"taxibj_shapes": taxibj["shapes"], "taxibj_plan": taxibj["plan"]._asdict(),
-                   "taxibj_ms": taxibj["ms"]["cluster"], "taxibj_stream_ms": taxibj["ms"]["stream"],
-                   "taxibj_plain_ms": taxibj["ms"]["plain"],
-                   "taxibj_addmm_loop_ms": taxibj["ms"]["addmm"],
-                   "taxibj_bound_ms": taxibj["bound_ms"], "taxibj_bound_by": taxibj["bound_by"],
-                   "taxibj_max_step_rel_err": taxibj["rel"], "taxibj_max_abs_err": taxibj["abs"]}
-
-    # -- 14. --no_s, the stability probe and the operations tooling (each
-    # sub-phase prints its own seconds) ------------------------------------------
-    with tempfile.TemporaryDirectory() as work:
-        ops = ops_phase(dev, work, data_dir, xp)
-    phase_done(14, quiet=True)
-
-    # -- 15. data and tensor parallelism on one card (phase 3's model, phase
-    # 9's test set; each part prints its own seconds) ----------------------------
-    with tempfile.TemporaryDirectory() as work:
-        par = parallel_phase(dev, work, data_dir, model, cfg, bf16_ms)
-    phase_done(15, quiet=True)
-
-    # -- 16. the measurement programs (each part prints its own seconds) ------------
-    with tempfile.TemporaryDirectory() as work:
-        programs = measurement_programs(dev, work)
-    phase_done(16, quiet=True)
-
-    # -- 17. a migrated reference experiment (prints its own seconds) -----------------
-    with tempfile.TemporaryDirectory() as work:
-        migrated = migrated_experiment(dev, work, libs)
-    phase_done(17, quiet=True)
-
-    # -- 19. the decoder's transposed-conv kernel ----------------------------------------
-    decoder = decoder_kernel_phase(dev)
-    phase_done(19)
-    work89.cleanup()
-    print("phase seconds: " + ", ".join(f"{k} {v}" for k, v in seconds.items()))
-    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
-    print(f"nvidia-smi: {smi}")  # again, beside the result lines at the end of the output
+                 "wave_bound_by": wave["bound_by"], "wave_max_step_rel_err": wave["rel"]["stream"],
+                 "wave_max_abs_err": wave["abs"]["stream"],
+                 "wave_block_step_us": wave["block_step_us"]["stream"]}
+    stream_keys = {
+        "serving4_shapes": serving4["shapes"],
+        "serving4_plan": serving4["plans"]["stream"]._asdict(),
+        "serving4_ms": serving4["ms"]["stream"], "serving4_plain_ms": serving4["ms"]["plain"],
+        "serving4_addmm_loop_ms": serving4["ms"]["addmm"],
+        "serving4_bound_ms": serving4["bound_ms"], "serving4_bound_by": serving4["bound_by"],
+        "from_l2_shapes": from_l2["shapes"], "from_l2_plan": from_l2["plans"]["stream"]._asdict(),
+        "from_l2_ms": from_l2["ms"]["stream"], "from_l2_plain_ms": from_l2["ms"]["plain"],
+        "from_l2_addmm_loop_ms": from_l2["ms"]["addmm"],
+        "from_l2_bound_ms": from_l2["bound_ms"], "from_l2_bound_by": from_l2["bound_by"]}
+    kt = taxibj["turns"]
+    taxibj_keys = {"taxibj_shapes": kt["shapes"], "taxibj_plan": kt["plans"]["cluster"]._asdict(),
+                   "taxibj_ms": kt["ms"]["cluster"], "taxibj_stream_ms": kt["ms"]["stream"],
+                   "taxibj_plain_ms": kt["ms"]["plain"],
+                   "taxibj_addmm_loop_ms": kt["ms"]["addmm"],
+                   "taxibj_bound_ms": kt["bound_ms"], "taxibj_bound_by": kt["bound_by"],
+                   "taxibj_max_step_rel_err": kt["rel"]["cluster"],
+                   "taxibj_max_abs_err": kt["abs"]["cluster"]}
 
     def chairs_keys(v: str) -> dict:
-        rel = max([errors[label, v][0] for label in chairs_labels]
-                  + ([chairs["rel"]] if v == "cluster" else []))
+        rel = max([errors[label, v][0] for label in chairs_labels] + [chairs["rel"][v]])
         return {"launches_chairs": {
                     "chairs_swap evaluate(model_bundle=f32 seed 0), whole test split (11f)":
-                        chairs["launches"][v],
+                        r["11"]["launches"][v],
                     "chairs_swap CLI on the bf16 checkpoint (11e)": 0,
                     "chairs training through the CLI, its resume and host path (11d)": 0,
                     "chairs train step, card against CPU (11b)": 0},
@@ -4842,49 +4331,33 @@ def main() -> None:
                 "chairs_bound_ms": chairs["bound_ms"], "chairs_bound_by": chairs["bound_by"],
                 "chairs_max_step_rel_err": rel}
 
-    sources = {"cluster": "mlp_resnet_rollout_cluster.cu", "stream": "mlp_resnet_rollout.cu"}
-    paths = {"cluster": ("serving, 1-block integrator", launches["cluster"]),
-             "stream": ("serving, 4-block integrator", launches4["stream"])}
-    serving = "serving B64 code20 H512 1 block 100 steps"
-    eval_launches = {v: {"Evaluator.score, f32 seed 0, B 16 (9b)":
-                         b16["launches"] if v == "cluster" else 0,
-                         **{f"{k} evaluate(model_bundle=f32 seed 0) (9c)": n[v]
-                            for k, n in evals["bundle"].items()},
-                         "eval CLIs on the bf16 checkpoint (9c)": 0}
-                     for v in ("cluster", "stream")}
-    print(json.dumps({"kernels": [{
+    return {"kernels": [{
         "name": f"mlp_resnet_rollout[{v}]",
         "route": "cuda",
         "source": f"spatiotemporal_variable_separation_tpu_torch/csrc/{sources[v]}",
         "replaces": "spatiotemporal_variable_separation_tpu/ops/pallas/rollout.py:91",
-        "launches": paths[v][1],
-        "launches_path": paths[v][0] + "; the eval paths in launches_eval",
+        "launches": launched[v],
+        "launches_path": paths[v] + "; the eval paths in launches_eval",
         "launches_eval": eval_launches[v],
-        "max_abs_err": errors[serving, v][1],
-        "max_step_rel_err": errors[serving, v][0],
-        "ms": ms[v],
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "max_abs_err": errors[serving_case, v][1],
+        "max_step_rel_err": errors[serving_case, v][0],
+        "ms": serving["ms"][v],
+        "plain_ms": serving["ms"]["plain"],
+        "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"],
         "library_ms": None,
-        "addmm_loop_ms": addmm_ms,
-        "shapes": "B 64, code 20, H 512, 1 block, 100 steps",
-        "plan": plans[v]._asdict(),
-        **eval_ms[v],
+        "addmm_loop_ms": serving["ms"]["addmm"],
+        "shapes": serving["shapes"],
+        "plan": serving["plans"][v]._asdict(),
+        "eval_shapes": eval_b16["shapes"], "eval_plan": eval_b16["plans"][v]._asdict(),
+        "eval_ms": eval_b16["ms"][v], "eval_plain_ms": eval_b16["ms"]["plain"],
+        "eval_bound_ms": eval_b16["bound_ms"], "eval_bound_by": eval_b16["bound_by"],
         "launches_wave": {"wave evaluate(model_bundle=f32 seed 0), whole test split (10f)":
-                          wave["launches"][v],
+                          r["10"]["launches"][v],
                           "wave and wave_partial CLIs on the bf16 checkpoints (10e)": 0,
                           "wave and wave_partial training (10d)": 0},
         **(wave_keys if v == "stream" else {}),
-        **({"serving4_shapes": serving4["shapes"], "serving4_plan": serving4["plan"]._asdict(),
-            "serving4_ms": serving4["ms"]["stream"], "serving4_plain_ms": serving4["ms"]["plain"],
-            "serving4_addmm_loop_ms": serving4["ms"]["addmm"],
-            "serving4_bound_ms": serving4["bound_ms"], "serving4_bound_by": serving4["bound_by"],
-            "from_l2_shapes": from_l2["shapes"], "from_l2_plan": from_l2["plan"]._asdict(),
-            "from_l2_ms": from_l2["ms"]["stream"], "from_l2_plain_ms": from_l2["ms"]["plain"],
-            "from_l2_addmm_loop_ms": from_l2["ms"]["addmm"],
-            "from_l2_bound_ms": from_l2["bound_ms"], "from_l2_bound_by": from_l2["bound_by"]}
-           if v == "stream" else {}),
+        **(stream_keys if v == "stream" else {}),
         **chairs_keys(v),
         "launches_taxibj": {
             "taxibj evaluate(model_bundle=f32 seed 0), whole test split (12e)":
@@ -4952,9 +4425,28 @@ def main() -> None:
         "rows_launches": decoder["rows_launches"],
         "serve_frame_gaps": decoder["serve_frame_gaps"],
         **{f"{shape}_{k}": v for shape in DECODER_SHAPES for k, v in decoder[shape].items()},
-    }]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
-                                             "count": torch.cuda.device_count()}}))
+    }]}
+
+
+def main(argv=None) -> None:
+    labels = selected_phases(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(1)
+    t_main = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as work:
+        ctx = Context(torch.device("cuda:0"), work)
+        results, seconds = run_phases(labels, ctx)
+    print("phase seconds: " + ", ".join(f"{k} {v}" for k, v in seconds.items()))
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all")
+    print(f"nvidia-smi: {ctx.smi}")  # again, beside the result lines at the end of the output
+    if len(results) == len(PHASES):
+        print(json.dumps(kernels_line(results)))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": ctx.card,
+                                             "count": torch.cuda.device_count()},
+                      "checks": checks_passed}))
 
 
 if __name__ == "__main__":
