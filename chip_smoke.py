@@ -353,9 +353,13 @@ result line is printed):
     decode fold) and 0 in an f32 train step; requests of 1, 8, 17, 33 and 63
     windows (the encoders padded to B 64, the rollout and the decoder on the rows
     asked for): their frames bitwise the 64-window request's first rows, their
-    ``rows_computed`` the rows asked for, 5 launches and 1 rollout launch each, and
-    the seconds they take; and the serving cell's ``frame_gap`` on 12 seeds through
-    ``benchmark/calibrate.py``, at most a fifth of its limit.
+    ``rows_computed`` the rows asked for, 5 launches and 1 rollout launch each, each
+    answer in page-locked host memory (its ``copy_back`` record counts ``pinned``
+    1), and the seconds they take; three 64-window answers held across ten later
+    64-window requests on other windows, bitwise as they were (the caching host
+    allocator hands no block a caller holds to a later request); and the serving
+    cell's ``frame_gap`` on 12 seeds through ``benchmark/calibrate.py``, at most a
+    fifth of its limit.
 Each phase, and each part of phases 12-13, 14, 15 and 16, prints its seconds on
 a line of its own; a line before the JSON lines lists every phase's seconds.
 
@@ -3883,20 +3887,36 @@ def decoder_kernel_phase(ctx) -> dict:
         transposed_conv.launches = mlp_resnet_rollout.launches = 0
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
             part = fc.predict(cond[:b])
-        (record,) = [r for r in span_log()[-4:] if r.name == "predict"]
+        records = {r.name: r.counts for r in span_log()[-4:]}
         launches = (transposed_conv.launches, mlp_resnet_rollout.launches)
         result["rows_bitwise"][b] = bool(np.array_equal(part, full[:b]))
         result["rows_launches"][b] = launches
-        print(f"a {b}-window request: rows computed {record.counts['rows_computed']}, frames "
-              f"bitwise the {B}-window request's first rows (default cuDNN algorithms) "
+        print(f"a {b}-window request: rows computed {records['predict']['rows_computed']}, "
+              f"frames bitwise the {B}-window request's first rows (default cuDNN algorithms) "
               f"{result['rows_bitwise'][b]}, transposed_conv launches {launches[0]}, rollout "
-              f"launches {launches[1]}")
-        check(record.counts == {"rows": b, "rows_computed": b},
-              f"a {b}-window request computed {record.counts}")
+              f"launches {launches[1]}, copy back {records['copy_back']}")
+        check(records["predict"] == {"rows": b, "rows_computed": b},
+              f"a {b}-window request computed {records['predict']}")
+        check(records["copy_back"] == {"pinned": 1} and part.base.is_pinned(),
+              f"a {b}-window request's answer is not in page-locked memory")
         check(result["rows_bitwise"][b], f"a {b}-window request differs from the full one's rows")
         check(launches == (5, 1), f"a {b}-window request's launches {launches}, not (5, 1)")
     result["padded_bitwise"] = all(result["rows_bitwise"].values())
     print(f"requests of {list(ROW_REQUESTS)} windows: {time.perf_counter() - t_rows:.1f} s")
+    # Answers a caller holds, against later requests of their size: the caching
+    # host allocator reuses a block only once its answer is dropped.
+    windows = rng.random((13, B, cfg.nt_cond) + cfg.frame_shape, dtype=np.float32)
+    held = [fc.predict(w) for w in windows[:3]]
+    kept = [a.copy() for a in held]
+    for w in windows[3:]:  # each answer dropped once the next is in hand: two blocks alternate
+        last = fc.predict(w)
+    unchanged = all(np.array_equal(a, k) for a, k in zip(held, kept))
+    print(f"three {B}-window answers held across {len(windows) - 3} later {B}-window "
+          f"requests: bitwise unchanged {unchanged}")
+    check(unchanged, "a held answer changed under later requests")
+    check(not any(np.array_equal(a, last) for a in held),
+          "a later request gave a held answer's frames")
+    del held, kept, last
     train_cfg = ExperimentConfig(data="mnist", architecture="dcgan", precision="f32",
                                  fused_loss=True, batch_size=TRAIN_CHECK_B)
     train_model = build_separable_network(train_cfg, dev, torch.Generator().manual_seed(0))

@@ -43,7 +43,13 @@ one model in eval mode on one device and answers requests of up to
   call, the request padded on the device as above, split evenly over the
   replicas: each shard runs on its replica (an f32 rollout launches the
   kernel once a shard, planned for the shard's rows) and the frames are
-  gathered to the first entry's device in shard order.
+  gathered to the first entry's device in shard order;
+* the answer is a numpy array on the host.  From the card it is copied into
+  page-locked memory from PyTorch's caching host allocator, so the copy back
+  runs at the host link's rate, with no staging copy that pageable memory
+  needs; the array holds its block until the caller drops it, so
+  no later request writes into an answer a caller still holds.  On the CPU
+  the forecast's own tensor is handed back, without a copy.
 
 Typical use::
 
@@ -175,7 +181,8 @@ class Forecaster:
         last, to ``batch_size``.  On one device only the encoders run the
         padded batch; the b rows asked for are rolled out and decoded
         (``_forecast_rows``).  Over a mesh the whole batch is computed, in
-        equal shards, and sliced back.
+        equal shards, and sliced back.  The answer from the card lands in
+        page-locked host memory that it holds until it is dropped.
         """
         b = cond.shape[0]
         if b > self.batch_size:
@@ -194,8 +201,19 @@ class Forecaster:
                 if b < self.batch_size:
                     x = torch.cat([x, x[-1:].expand((self.batch_size - b,) + x.shape[1:])])
             out = self._forecast_rows(x, b) if self.mesh is None else self.forecast(x)[:b]
-            with span("copy_back"):
-                return out.float().cpu().numpy()  # numpy has no bf16
+            # ``pinned``: 1 when the answer comes back from the card into
+            # page-locked host memory, 0 when it is already on the host.
+            pinned = int(out.device.type == "cuda")
+            with span("copy_back", pinned=pinned):
+                out = out.float()  # numpy has no bf16
+                if not pinned:
+                    return out.numpy()
+                # A block of PyTorch's caching host allocator: the copy runs at
+                # the link's rate, with no staging copy as into pageable memory.
+                # The ndarray holds the tensor, so the block goes back to the
+                # cache only when the caller drops the answer.
+                answer = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                return answer.copy_(out).numpy()
 
     def benchmark(self, n_iters: int = 50, warmup: int = 5) -> Dict[str, Any]:
         """Steady-state latency of ``forecast`` on a device-resident batch;

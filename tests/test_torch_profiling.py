@@ -106,7 +106,8 @@ def test_predict_logs_rows_and_its_stages(tmp_path):
         out = fc.predict(_cond(3))
     assert out.shape == (3, N, 64, 64, 1)
     assert profiling.span_log() == [("predict", {"rows": 3, "rows_computed": 3}),
-                                    ("stage_in", {}), ("decode", {}), ("copy_back", {})]
+                                    ("stage_in", {}), ("decode", {}),
+                                    ("copy_back", {"pinned": 0})]
     (root, *stages) = _spans_in_trace(prof, tmp_path)
     assert root[0] == "predict" and [s[0] for s in stages] == ["stage_in", "decode", "copy_back"]
     # the stages follow one another inside the request

@@ -13,6 +13,7 @@ import os
 import re
 import subprocess
 import sys
+from collections import deque
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +30,8 @@ from spatiotemporal_variable_separation_tpu.models.factory import (
 )
 from spatiotemporal_variable_separation_tpu_torch import serve as tserve
 from spatiotemporal_variable_separation_tpu_torch.core.config import ExperimentConfig
+from spatiotemporal_variable_separation_tpu_torch.parallel.mesh import make_mesh
+from spatiotemporal_variable_separation_tpu_torch.utils import profiling
 from test_torch_layers import random_variables
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -147,6 +150,60 @@ def test_encoders_see_the_batch_and_the_rest_the_rows_asked_for(served, monkeypa
         for h in hooks:
             h.remove()
     assert seen == {"Es": [B], "Et": [B], "t0": [3], "decoder": [3 * N]}
+
+
+def _on_path(served, path):
+    """The f32 CPU Forecaster of ``served`` on one device, or the same model
+    over a two-entry mesh of the CPU."""
+    fc, cond, _ = served(False)
+    if path == "mesh":
+        fc = tserve.Forecaster(fc.model, fc.cfg, B, N, device="cpu",
+                               mesh=make_mesh(devices=["cpu"] * 2))
+    return fc, cond
+
+
+@pytest.mark.parametrize("path", ["one device", "mesh"])
+def test_cpu_answer_is_the_forecast_itself(served, monkeypatch, path):
+    """On the CPU the forecast already lives on the host: ``predict`` hands
+    back its own memory, pins nothing, and its ``copy_back`` record counts
+    ``pinned`` 0."""
+    fc, cond = _on_path(served, path)
+    made = []
+    name = "_forecast_rows" if path == "one device" else "forecast"
+    forecast = getattr(fc, name)
+    monkeypatch.setattr(fc, name, lambda *a: made.append(forecast(*a)) or made[-1])
+    empty = torch.empty
+
+    def unpinned(*args, **kw):
+        assert not kw.get("pin_memory"), "the CPU path pinned host memory"
+        return empty(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty", unpinned)
+    monkeypatch.setattr(profiling, "LOG", deque(maxlen=16))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fc.predict(cond[:3])
+    (forecast_out,) = made
+    assert out.shape == (3, N, 64, 64, 1)
+    assert out.ctypes.data == forecast_out.data_ptr() and np.shares_memory(
+        out, forecast_out.numpy())
+    assert [r.counts for r in profiling.span_log() if r.name == "copy_back"] == [{"pinned": 0}]
+    assert not torch.cuda.is_initialized()
+
+
+@pytest.mark.parametrize("path", ["one device", "mesh"])
+def test_held_answers_survive_later_requests(served, path):
+    """An answer a caller holds is its own: later requests of the same and
+    other sizes, on other windows, leave it bitwise as it was."""
+    fc, cond = _on_path(served, path)
+    other = np.random.default_rng(6).random(cond.shape, dtype=np.float32)
+    held = [fc.predict(cond[:b]) for b in (B, 2, B)]
+    kept = [a.copy() for a in held]
+    later = [fc.predict(other[:b]) for b in (B, 2, 1, B, 3)]
+    for a, k in zip(held, kept):
+        assert np.array_equal(a, k)
+    # the later answers differ, so an answer written over would show
+    assert not np.array_equal(later[0], held[0])
+    assert not any(np.shares_memory(a, x) for a in held for x in later)
 
 
 def test_mixed_forecaster_matches_jax():
